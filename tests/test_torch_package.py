@@ -1,0 +1,136 @@
+"""Package-level checks of the PyTorch + CUDA port.
+
+* Importing ``tpu_dpow_torch`` and every submodule loads neither ``jax`` nor
+  any module of ``tpu_dpow`` (checked in a fresh interpreter).
+* The kernel's arithmetic header (``ops/csrc/blake2b_search.cuh``), built for
+  the host with ``g++``, gives hashlib's work values.
+* ``chip_smoke.py`` fails, and prints no result, where no card is visible.
+* On a card (marker ``cuda``, skipped here): the kernel equals its plain
+  version bit for bit, and each launch moves the counter by one.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_dpow_torch.ops import cuda_kernel, search
+
+# The suite runs in parallel worker processes: one intra-op thread each
+# keeps these tests from crowding out the others on the same cores.
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CUH = os.path.join(REPO, "tpu_dpow_torch", "ops", "csrc", "blake2b_search.cuh")
+MAX_U64 = (1 << 64) - 1
+EASY = 0xFFF0000000000000
+
+
+def ref_value(nonce: int, h: bytes) -> int:
+    return int.from_bytes(
+        hashlib.blake2b(struct.pack("<Q", nonce & MAX_U64) + h, digest_size=8).digest(),
+        "little",
+    )
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    probe = (
+        "import importlib, pkgutil, sys\n"
+        "import tpu_dpow_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(tpu_dpow_torch.__path__, 'tpu_dpow_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith('jax.') or m == 'tpu_dpow'\n"
+        "             or m.startswith('tpu_dpow.'))\n"
+        "print(len(names), bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 10  # every module of the slice was imported
+    assert bad == "[]"
+
+
+def test_cuh_host_build_matches_hashlib(tmp_path):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the header's host build cannot be compiled")
+    src = tmp_path / "pow.cc"
+    src.write_text(
+        f'#include "{CUH}"\n'
+        'extern "C" uint64_t pow_value(uint64_t n, const uint64_t* h) {\n'
+        "  return b2pow::pow_value(n, h[0], h[1], h[2], h[3]);\n"
+        "}\n"
+    )
+    lib_path = tmp_path / "libpow.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(lib_path), str(src)],
+        check=True, capture_output=True, timeout=120,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    lib.pow_value.argtypes = [ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64)]
+    lib.pow_value.restype = ctypes.c_uint64
+    rng = np.random.default_rng(2)
+    edges = [0, 1, 0xFFFFFFFF, 1 << 32, (1 << 63) - 1, 1 << 63, MAX_U64 - 1, MAX_U64]
+    for _ in range(16):
+        h = rng.bytes(32)
+        words = (ctypes.c_uint64 * 4)(*struct.unpack("<4Q", h))
+        nonces = edges + [int(x) for x in rng.integers(0, 1 << 64, size=8, dtype=np.uint64)]
+        for n in nonces:
+            assert lib.pow_value(n, words) == ref_value(n, h), (h.hex(), n)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def seeded_rows() -> np.ndarray:
+    """Pads, a 2^32 and a 2^64 carry, easy rows and a dry row."""
+    rng = np.random.default_rng(41)
+    rows = [
+        (rng.bytes(32), 0, int(rng.integers(0, 1 << 62))),
+        (bytes(32), 0, 0),
+        (rng.bytes(32), EASY, (5 << 32) - 100),
+        (rng.bytes(32), EASY, MAX_U64 - 100),
+        (rng.bytes(32), 0xFFFE000000000000, int(rng.integers(0, 1 << 62))),
+        (rng.bytes(32), 0xFFFFC00000000000, int(rng.integers(0, 1 << 62))),
+        (rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 62))),
+    ]
+    return np.stack([search.pack_params(h, d, b) for h, d, b in rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nblocks", [1, 3, 16])
+def test_kernel_matches_plain_on_the_card(nblocks):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    params = search.params_from_numpy(seeded_rows(), "cuda")
+    geo = dict(sublanes=8, iters=16, nblocks=nblocks, group=2)
+    before = cuda_kernel.launches
+    got = cuda_kernel.cuda_search_chunk_batch(params, **geo)
+    assert cuda_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    want = search.search_chunk_batch(params, chunk_size=cuda_kernel.window(**geo))
+    assert torch.equal(got, want)
+    single = cuda_kernel.cuda_search_chunk(params[2], sublanes=8, iters=16, group=2)
+    assert int(single) == int(search.search_chunk(params[2], chunk_size=8 * 128 * 16))
+    with pytest.raises(TypeError):
+        cuda_kernel.cuda_search_chunk_batch(params.to(torch.int64), **geo)
