@@ -5,8 +5,10 @@
 * The kernel's arithmetic header (``ops/csrc/blake2b_search.cuh``), built for
   the host with ``g++``, gives hashlib's work values.
 * ``chip_smoke.py`` fails, and prints no result, where no card is visible.
-* On a card (marker ``cuda``, skipped here): the kernel equals its plain
-  version bit for bit, and each launch moves the counter by one.
+* On a card (marker ``cuda``, skipped here): each kernel equals its plain
+  version bit for bit — the persistent run kernel with and without a
+  scripted control channel, its LaunchControl bookkeeping included — and
+  each launch moves its counter by one.
 """
 
 import ctypes
@@ -21,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_dpow_torch.ops import cuda_kernel, search
+from tpu_dpow_torch.ops import control, cuda_kernel, runloop, search
 
 # The suite runs in parallel worker processes: one intra-op thread each
 # keeps these tests from crowding out the others on the same cores.
@@ -134,3 +136,79 @@ def test_kernel_matches_plain_on_the_card(nblocks):
     assert int(single) == int(search.search_chunk(params[2], chunk_size=8 * 128 * 16))
     with pytest.raises(TypeError):
         cuda_kernel.cuda_search_chunk_batch(params.to(torch.int64), **geo)
+
+
+class TickClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def time(self) -> float:
+        self.t += 0.125
+        return self.t
+
+
+class ScriptedControl(control.LaunchControl):
+    """Raise row 4 at k >= 0, rebase row 3 at k >= 1, cancel row 6 at
+    k >= 2, each once, from inside the poll."""
+
+    EVENTS = (
+        (0, lambda c: c.raise_difficulty(4, 0xFFFFF00000000000, epoch=2)),
+        (1, lambda c: c.rebase(3, MAX_U64 - 900, epoch=4)),
+        (2, lambda c: c.cancel(6)),
+    )
+
+    def poll(self, dev, k, done):
+        for i, (k_min, fire) in enumerate(self.EVENTS):
+            if k >= k_min and i not in self.fired:
+                self.fired.add(i)
+                fire(self)
+        return super().poll(dev, k, done)
+
+
+def run_both_sides(params, window, poll_steps):
+    """The run kernel and the plain run loop on the same rows → per side
+    (nonces, bookkeeping or None)."""
+    out = []
+    for on_card in (True, False):
+        c = slot = None
+        if poll_steps is not None:
+            c = ScriptedControl(params.shape[0], clock=TickClock())
+            c.fired = set()
+            slot = control.register(c)
+        try:
+            if on_card:
+                before = cuda_kernel.run_launches
+                if slot is None:
+                    lo, hi = runloop.search_run_batch(params, None, max_steps=11, sublanes=8, iters=16)
+                else:
+                    lo, hi = runloop.search_run_batch_controlled(
+                        params, None, slot, max_steps=11, poll_steps=poll_steps,
+                        sublanes=8, iters=16)
+                assert cuda_kernel.run_launches == before + 1
+            else:
+                lo, hi = runloop.run_loop_core(
+                    params, None, launch=runloop.plain_launch(window), window=window,
+                    max_steps=11, poll_steps=poll_steps or 0,
+                    control_poll=None if slot is None else runloop.make_control_poll(slot))
+            lo, hi = search.offsets_to_numpy(lo), search.offsets_to_numpy(hi)
+        finally:
+            if slot is not None:
+                control.release(slot)
+        book = None if c is None else (
+            c.polls, c.last_k, sorted(c.done_at_k.items()), c.delivered,
+            [(c.effective_base(r), c.effective_difficulty(r), c.effective_epoch(r, -1))
+             for r in range(c.rows)])
+        out.append(([(int(h) << 32) | int(x) for x, h in zip(lo, hi)], book))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poll_steps", [None, 1, 3])
+def test_run_kernel_matches_plain_on_the_card(poll_steps):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the persistent kernel has no CPU mode")
+    params = search.params_from_numpy(seeded_rows(), "cuda")
+    card, plain = run_both_sides(params, cuda_kernel.window(8, 16), poll_steps)
+    assert card == plain
+    with pytest.raises(TypeError):
+        runloop.search_run_batch(params.to(torch.int64), None, max_steps=1, sublanes=8, iters=16)

@@ -113,7 +113,7 @@ int blocks_per_row(int total, int rows, uint32_t span) {
 
 extern "C" {
 
-int b2_abi_version() { return 1; }
+int b2_abi_version() { return 2; }
 
 const char* b2_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 

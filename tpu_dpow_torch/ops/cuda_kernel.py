@@ -1,21 +1,31 @@
-"""The hand-written CUDA kernel for the Blake2b nonce search: build, load, call.
+"""The hand-written CUDA kernels of the port: build, load, call.
 
-Counterpart of ``tpu_dpow/ops/pallas_kernel.py``: ``cuda_search_chunk`` and
-``cuda_search_chunk_batch`` take the signatures, geometry checks and
-``< 2^31`` window limit of ``pallas_search_chunk`` and
-``pallas_search_chunk_batch``. The three Pallas kernels (single, batched,
-multi-window grid) are one CUDA kernel here (``csrc/blake2b_search.cu``);
-``sublanes``, ``iters`` and ``nblocks`` only define the span one launch
-scans per row, and ``group`` (the TPU's early-exit cadence) is checked and
-otherwise unused: the kernel exits early per warp.
+Counterpart of ``tpu_dpow/ops/pallas_kernel.py`` and of the device loop of
+``tpu_dpow/ops/runloop.py``. Two kernels, each in its own library:
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, and loaded with ``ctypes``. The
-library's name carries a hash of the sources and the compile command, so an
-edit rebuilds it and concurrent builders never load a half-written file.
+  * ``cuda_search_chunk`` and ``cuda_search_chunk_batch`` take the
+    signatures, geometry checks and ``< 2^31`` window limit of
+    ``pallas_search_chunk`` and ``pallas_search_chunk_batch``. The three
+    Pallas kernels (single, batched, multi-window grid) are one CUDA kernel
+    here (``csrc/blake2b_search.cu``); ``sublanes``, ``iters`` and
+    ``nblocks`` only define the span one launch scans per row, and
+    ``group`` (the TPU's early-exit cadence) is checked and otherwise
+    unused: the kernel exits early per warp.
+  * ``cuda_search_run_batch`` and ``cuda_search_run_batch_controlled`` run
+    ``run_loop_core``'s multi-window loop as one persistent cooperative
+    launch (``csrc/blake2b_run.cu``). The controlled launch polls its
+    control block through a mailbox in mapped pinned host memory: the
+    calling thread serves each poll through ``control.poll_slot`` until the
+    kernel has returned, exactly the polls ``io_callback`` would make.
+
+Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use (one ``nvcc`` per source, started
+together), and loaded with ``ctypes``. A library's name carries a hash of its
+sources and the compile command, so an edit rebuilds it and concurrent
+builds never load a half-written file.
 
 A CUDA tensor goes to the kernel or raises. A CPU tensor goes to the plain
-PyTorch version (``ops/search.py``); nothing else does.
+PyTorch version (``ops/search.py``, ``ops/runloop.py``); nothing else does.
 """
 
 from __future__ import annotations
@@ -26,32 +36,42 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from . import search
+from . import control, search
 
 DEFAULT_SUBLANES = 32
 DEFAULT_ITERS = 256
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-# Where the library is built (listed in .gitignore).
+# Where the libraries are built (listed in .gitignore).
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("blake2b_search.cu", "blake2b_search.cuh")
+# Library name -> (file stem, sources; the first is the one compiled).
+LIBRARIES = {
+    "search": ("libb2search", ("blake2b_search.cu", "blake2b_search.cuh")),
+    "run": ("libb2run", ("blake2b_run.cu", "blake2b_search.cuh")),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_ABI_VERSION = 1
+_ABI_VERSION = 2
 
-# Kernel launches made through the wrappers below (the only place it moves).
+# Kernel launches made through the wrappers below (the only place they move):
+# ``launches`` for the search kernel, ``run_launches`` for the persistent one.
 launches = 0
+run_launches = 0
+# Control polls the persistent kernel made, and their round trip as the
+# kernel's leader measured it (post of the request to sight of the answer).
+run_poll_stats = {"polls": 0, "round_trip_ns": 0, "round_trip_ns_max": 0}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_lib_path: Optional[str] = None
+_libs: Dict[str, ctypes.CDLL] = {}
+_lib_paths: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -61,75 +81,154 @@ def nvcc_path() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernel cannot be built")
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
-def build_library() -> str:
-    """Compile ``csrc/blake2b_search.cu`` if no library for these sources
-    exists yet; return its path. ``<lib>.log`` keeps nvcc's output
-    (``-Xptxas -v``: registers and spill bytes)."""
+def _target(name: str) -> str:
+    """Path of library ``name`` for the sources as they are now."""
+    stem, sources = LIBRARIES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
-    out = os.path.join(BUILD_DIR, f"libb2search-{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
+    for src in sources:
+        with open(os.path.join(_CSRC, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_libraries(names=tuple(LIBRARIES)) -> Dict[str, str]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together; return name -> path.
+    ``<lib>.log`` keeps nvcc's output (``-Xptxas -v``: registers, spills)."""
+    outs = {name: _target(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not os.path.exists(out)}
+    if not todo:
+        return outs
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = os.path.join(BUILD_DIR, f".{os.path.basename(out)}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[0])]
+    nvcc = nvcc_path()
+    procs = {}
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        with open(out + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        for name, out in todo.items():
+            tmp = os.path.join(BUILD_DIR, f".{os.path.basename(out)}.{os.getpid()}.tmp")
+            src = os.path.join(_CSRC, LIBRARIES[name][1][0])
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{LIBRARIES[name][1][0]}: nvcc failed ({proc.returncode}):\n{stderr}")
+                continue
+            with open(todo[name] + ".log", "w") as f:
+                f.write(stdout + stderr)
+            os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
+
+
+def _bind_search(lib: ctypes.CDLL) -> None:
+    lib.b2_blocks_per_row.argtypes = [ctypes.c_int, ctypes.c_uint]
+    lib.b2_blocks_per_row.restype = ctypes.c_int
+    lib.b2_search_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+        ctypes.c_void_p,
+    ]
+    lib.b2_search_launch.restype = ctypes.c_int
+
+
+def _bind_run(lib: ctypes.CDLL) -> None:
+    lib.b2_run_state_words.argtypes = [ctypes.c_int]
+    lib.b2_run_state_words.restype = ctypes.c_int
+    lib.b2_run_out_words.argtypes = [ctypes.c_int]
+    lib.b2_run_out_words.restype = ctypes.c_int
+    lib.b2_run_blocks_per_row.argtypes = [ctypes.c_int]
+    lib.b2_run_blocks_per_row.restype = ctypes.c_int
+    lib.b2_run_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.b2_run_launch.restype = ctypes.c_int
+    lib.b2_mailbox_alloc.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+    ]
+    lib.b2_mailbox_alloc.restype = ctypes.c_int
+    lib.b2_mailbox_reset.argtypes = [ctypes.c_void_p]
+    lib.b2_mailbox_reset.restype = None
+    lib.b2_mailbox_take.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint), ctypes.c_void_p,
+    ]
+    lib.b2_mailbox_take.restype = ctypes.c_uint
+    lib.b2_mailbox_answer.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+    ]
+    lib.b2_mailbox_answer.restype = None
+
+
+_BINDERS = {"search": _bind_search, "run": _bind_run}
+
+
+def load_libraries() -> Dict[str, ctypes.CDLL]:
+    """Build (at first use, in parallel) and load every kernel library once
+    per process."""
+    with _lock:
+        missing = [name for name in LIBRARIES if name not in _libs]
+        if missing:
+            paths = build_libraries(tuple(missing))
+            for name in missing:
+                lib = ctypes.CDLL(paths[name])
+                lib.b2_abi_version.restype = ctypes.c_int
+                if lib.b2_abi_version() != _ABI_VERSION:
+                    raise RuntimeError(
+                        f"{paths[name]}: ABI {lib.b2_abi_version()} != {_ABI_VERSION}"
+                    )
+                lib.b2_error_string.argtypes = [ctypes.c_int]
+                lib.b2_error_string.restype = ctypes.c_char_p
+                _BINDERS[name](lib)
+                if name == "run":
+                    _prepare_mailboxes(lib)
+                _libs[name], _lib_paths[name] = lib, paths[name]
+        return dict(_libs)
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library once per process."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is None:
-            path = build_library()
-            lib = ctypes.CDLL(path)
-            lib.b2_abi_version.restype = ctypes.c_int
-            if lib.b2_abi_version() != _ABI_VERSION:
-                raise RuntimeError(f"{path}: ABI {lib.b2_abi_version()} != {_ABI_VERSION}")
-            lib.b2_error_string.argtypes = [ctypes.c_int]
-            lib.b2_error_string.restype = ctypes.c_char_p
-            lib.b2_blocks_per_row.argtypes = [ctypes.c_int, ctypes.c_uint]
-            lib.b2_blocks_per_row.restype = ctypes.c_int
-            lib.b2_search_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                ctypes.c_void_p,
-            ]
-            lib.b2_search_launch.restype = ctypes.c_int
-            _lib, _lib_path = lib, path
-        return _lib
+    """The search kernel's library (every library is built and loaded)."""
+    return load_libraries()["search"]
 
 
-def build_log() -> str:
-    """nvcc's output for the loaded library ('' before the first load)."""
-    if _lib_path is None or not os.path.exists(_lib_path + ".log"):
+def load_run_library() -> ctypes.CDLL:
+    """The persistent kernel's library (every library is built and loaded)."""
+    return load_libraries()["run"]
+
+
+def build_log(name: str = "search") -> str:
+    """nvcc's output for a loaded library ('' before the first load)."""
+    path = _lib_paths.get(name)
+    if path is None or not os.path.exists(path + ".log"):
         return ""
-    with open(_lib_path + ".log") as f:
+    with open(path + ".log") as f:
         return f.read()
 
 
-def library_path() -> Optional[str]:
-    return _lib_path
+def library_path(name: str = "search") -> Optional[str]:
+    return _lib_paths.get(name)
 
 
 def reset_launches() -> None:
-    global launches
+    """Zero both kernels' launch counts and the poll statistics."""
+    global launches, run_launches
     with _lock:
-        launches = 0
+        launches = run_launches = 0
+        run_poll_stats.update(polls=0, round_trip_ns=0, round_trip_ns_max=0)
 
 
 def window(sublanes: int, iters: int, nblocks: int = 1, group: int = 1) -> int:
@@ -206,3 +305,261 @@ def cuda_search_chunk(
         sublanes=sublanes, iters=iters, group=group,
     )[0]
 
+
+
+# -- the persistent run kernel -------------------------------------------------
+#
+# Persistent launches share one CUDA stream (backend/torch_backend.py), so a
+# pipelined successor's kernel is queued behind the running one and needs its
+# own launch thread to serve its polls once it starts. A launch thread must
+# therefore never wait on that stream after its kernel is enqueued: a
+# device-to-host copy of its results would queue behind the successor and,
+# inside the CUDA driver, hold up the successor's thread (a deadlock seen on the
+# card). A controlled launch writes its results and poll statistics into the
+# mailbox, which the thread reads once the launch's event has completed.
+
+# Mailbox words: req_seq, resp_seq, k, spare, done[rows], ctrl[rows, 6], then
+# the launch's out words: lo[rows], hi[rows], polls, poll_ns (lo, hi),
+# poll_ns_max (lo, hi), spare (csrc/blake2b_run.cu).
+_MB_HEAD = 4
+_OUT_STATS = 6
+# Longest the poll-serving loop spins in C (without the GIL) for a request
+# before it looks whether the kernel has returned.
+POLL_SPIN_US = 200
+# Mailboxes made when the library loads, of this many rows each: enough for
+# the engine's launches (max_batch 16, pipeline 2) without a pinned
+# allocation while a kernel runs.
+_MAILBOX_ROWS, _MAILBOXES_AT_LOAD = 16, 2
+
+
+def _mailbox_words(rows: int) -> int:
+    return _MB_HEAD + (1 + control.CTRL_WORDS) * rows + 2 * rows + _OUT_STATS
+
+
+class _Mailbox:
+    """One mapped pinned mailbox, for launches of up to ``rows`` rows."""
+
+    def __init__(self, lib: ctypes.CDLL, rows: int):
+        self.rows = rows
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        words = _mailbox_words(rows)
+        err = lib.b2_mailbox_alloc(words, ctypes.byref(host), ctypes.byref(dev))
+        if err != 0:
+            raise RuntimeError(
+                f"mailbox allocation failed: {lib.b2_error_string(err).decode()} ({err})"
+            )
+        self.host, self.dev = host.value, dev.value
+        self.words = np.ctypeslib.as_array((ctypes.c_uint32 * words).from_address(self.host))
+
+    def out_offset(self, rows: int) -> int:
+        """Word offset of a ``rows``-row launch's out words."""
+        return _MB_HEAD + (1 + control.CTRL_WORDS) * rows
+
+
+# Free mailboxes by capacity. Freeing pinned memory synchronizes the device,
+# which would stall a launch thread behind its successor's kernel, so
+# mailboxes are kept for reuse instead.
+_mailboxes: Dict[int, list] = {}
+
+
+def _prepare_mailboxes(lib: ctypes.CDLL) -> None:
+    if lib.b2_run_out_words(1) != 2 + _OUT_STATS:
+        raise RuntimeError("run library's out layout differs from the wrapper's")
+    _mailboxes.setdefault(_MAILBOX_ROWS, []).extend(
+        _Mailbox(lib, _MAILBOX_ROWS) for _ in range(_MAILBOXES_AT_LOAD)
+    )
+
+
+def _take_mailbox(lib: ctypes.CDLL, rows: int) -> _Mailbox:
+    cap = max(_MAILBOX_ROWS, 1 << max(0, rows - 1).bit_length())
+    with _lock:
+        free = _mailboxes.get(cap)
+        if free:
+            return free.pop()
+    return _Mailbox(lib, cap)
+
+
+def _give_mailbox(box: _Mailbox) -> None:
+    with _lock:
+        _mailboxes.setdefault(box.rows, []).append(box)
+
+
+def _check_params(params_batch: torch.Tensor) -> None:
+    if params_batch.device.type != "cuda":
+        raise ValueError(f"params must be on cuda or cpu, not {params_batch.device}")
+    if params_batch.dtype != torch.int32:
+        raise TypeError(f"params must be the int32 bit view, got {params_batch.dtype}")
+    if params_batch.dim() != 2 or params_batch.shape[1] != search.PARAMS_LEN:
+        raise ValueError(
+            f"params must be [B, {search.PARAMS_LEN}], got {tuple(params_batch.shape)}"
+        )
+    if not params_batch.is_contiguous():
+        raise ValueError("params must be contiguous")
+
+
+def _run_launch(params_batch, active, *, window, max_steps, poll_steps, out_ptr, mbox_dev):
+    """Enqueue one persistent launch on the current stream; returns the
+    stream. The kernel writes its out words at ``out_ptr``."""
+    global run_launches
+    if not 0 < window < 1 << 31:
+        raise ValueError("per-step window must be in (0, 2^31) nonces")
+    if max_steps < 0:
+        raise ValueError("max_steps must be >= 0")
+    rows = params_batch.shape[0]
+    dev = params_batch.device
+    lib = load_run_library()
+    act = None
+    if active is not None:
+        act = active.to(device=dev, dtype=torch.uint8).contiguous()
+        if act.shape != (rows,):
+            raise ValueError(f"active must be [{rows}], got {tuple(act.shape)}")
+    with torch.cuda.device(dev):
+        state = torch.empty(lib.b2_run_state_words(rows), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        err = lib.b2_run_launch(
+            params_batch.data_ptr(), None if act is None else act.data_ptr(),
+            state.data_ptr(), out_ptr, rows, window, max_steps, poll_steps, mbox_dev,
+            stream.cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"blake2b run launch failed: {lib.b2_error_string(err).decode()} ({err})"
+        )
+    with _lock:
+        run_launches += 1
+    return stream
+
+
+def cuda_search_run_batch(
+    params_batch: torch.Tensor,
+    active: Optional[torch.Tensor],
+    *,
+    window: int,
+    max_steps: int,
+) -> tuple:
+    """``run_loop_core`` without control as one persistent launch: up to
+    ``max_steps`` windows of ``window`` nonces per row → (lo, hi) int32[B]
+    bit views (on the card) of each row's absolute winning nonce, all-ones
+    where the span was dry or the row inactive. Returns without waiting for
+    the kernel. On a CPU tensor this is the plain version
+    (``ops/runloop.py``)."""
+    if params_batch.device.type == "cpu":
+        from . import runloop
+
+        return runloop.run_loop_core(
+            params_batch, active, launch=runloop.plain_launch(window),
+            window=window, max_steps=max_steps,
+        )
+    _check_params(params_batch)
+    rows = params_batch.shape[0]
+    out = torch.empty(2 * rows + _OUT_STATS, dtype=torch.int32, device=params_batch.device)
+    if rows:
+        _run_launch(
+            params_batch, active, window=window, max_steps=max_steps, poll_steps=0,
+            out_ptr=out.data_ptr(), mbox_dev=None,
+        )
+    return out[:rows], out[rows:2 * rows]
+
+
+class _PollServer:
+    """Answers one launch's polls. Built before the launch, so the first
+    poll (k = 0, posted as soon as the kernel starts) does not wait for it."""
+
+    def __init__(self, lib: ctypes.CDLL, box: _Mailbox, rows: int, slot: int):
+        self.lib, self.box, self.rows, self.slot = lib, box, rows, slot
+        self.k = ctypes.c_uint()
+        self.done = np.zeros(rows, dtype=np.uint8)
+        self.cancel_all = np.zeros((rows, control.CTRL_WORDS), dtype=np.uint32)
+        self.cancel_all[:, control.IDX_FLAGS] = control.FLAG_CANCEL
+
+    def _words(self) -> np.ndarray:
+        words = np.ascontiguousarray(
+            control.poll_slot(self.slot, 0, self.k.value, self.done.astype(bool)),
+            dtype=np.uint32,
+        )
+        if words.shape != self.cancel_all.shape:
+            raise ValueError(f"control poll returned {words.shape}, not {self.cancel_all.shape}")
+        return words
+
+    def serve(self, finished) -> Optional[Exception]:
+        """Answer the kernel's polls through ``control.poll_slot`` until it
+        has returned (``finished``, a CUDA event after it, completes). If a
+        poll raises, every later answer (this one included) is a CANCEL of
+        every row, so the kernel exits within one poll; the error is
+        returned for the caller to raise once the kernel is done."""
+        lib, box, served, failure = self.lib, self.box, 0, None
+        while True:
+            n = lib.b2_mailbox_take(
+                box.host, self.rows, served, POLL_SPIN_US, ctypes.byref(self.k),
+                self.done.ctypes.data,
+            )
+            if n != served:
+                words = self.cancel_all
+                if failure is None:
+                    try:
+                        words = self._words()
+                    except Exception as e:  # noqa: BLE001 — raised after the kernel exits
+                        failure, words = e, self.cancel_all
+                lib.b2_mailbox_answer(box.host, words.ctypes.data, self.rows, n)
+                served = n
+            elif finished.query():
+                return failure
+
+
+def cuda_search_run_batch_controlled(
+    params_batch: torch.Tensor,
+    active: Optional[torch.Tensor],
+    slot: int,
+    *,
+    window: int,
+    max_steps: int,
+    poll_steps: int,
+) -> tuple:
+    """The persistent launch with a live control channel: the kernel polls
+    slot ``slot``'s control block (ops/control.py) every ``poll_steps``
+    windows and applies cancel, raise and rebase mid-launch. Blocks the
+    calling thread, serving the polls, until the kernel has returned, and
+    returns (lo, hi) int32[B] bit views as :func:`cuda_search_run_batch`
+    does, but on the host (read from the mailbox, see above). On a CPU
+    tensor this is the plain version (``ops/runloop.py``)."""
+    if params_batch.device.type == "cpu":
+        from . import runloop
+
+        return runloop.run_loop_core(
+            params_batch, active, launch=runloop.plain_launch(window),
+            window=window, max_steps=max_steps,
+            control_poll=runloop.make_control_poll(slot), poll_steps=poll_steps,
+        )
+    _check_params(params_batch)
+    if poll_steps < 1:
+        raise ValueError("poll_steps must be >= 1")
+    rows = params_batch.shape[0]
+    if rows == 0:
+        empty = torch.empty(0, dtype=torch.int32)
+        return empty, empty.clone()
+    lib = load_run_library()
+    box = _take_mailbox(lib, rows)
+    lib.b2_mailbox_reset(box.host)
+    server = _PollServer(lib, box, rows, int(slot))
+    with torch.cuda.device(params_batch.device):
+        finished = torch.cuda.Event()
+    base = box.out_offset(rows)
+    stream = _run_launch(
+        params_batch, active, window=window, max_steps=max_steps,
+        poll_steps=poll_steps, out_ptr=box.dev + 4 * base, mbox_dev=box.dev,
+    )
+    finished.record(stream)
+    failure = server.serve(finished)
+    out = box.words[base:base + 2 * rows + _OUT_STATS].copy()
+    _give_mailbox(box)  # the kernel has returned: nothing reads it any more
+    polls = int(out[2 * rows])
+    total_ns = int(out[2 * rows + 1]) | int(out[2 * rows + 2]) << 32
+    max_ns = int(out[2 * rows + 3]) | int(out[2 * rows + 4]) << 32
+    with _lock:
+        run_poll_stats["polls"] += polls
+        run_poll_stats["round_trip_ns"] += total_ns
+        run_poll_stats["round_trip_ns_max"] = max(run_poll_stats["round_trip_ns_max"], max_ns)
+    if failure is not None:
+        raise failure
+    bits = torch.from_numpy(out[:2 * rows].view(np.int32).copy())
+    return bits[:rows], bits[rows:]

@@ -55,10 +55,15 @@ def pack_params(block_hash: bytes, difficulty: int, base: int) -> np.ndarray:
     return out
 
 
-def params_from_numpy(rows: np.ndarray, device="cpu") -> torch.Tensor:
-    """uint32 params rows ([12] or [B, 12]) → their int32 bit view on ``device``."""
+def params_from_numpy(rows: np.ndarray, device="cpu", non_blocking: bool = False) -> torch.Tensor:
+    """uint32 params rows ([12] or [B, 12]) → their int32 bit view on ``device``.
+    ``non_blocking`` uploads to a card through pinned memory, queued on the
+    current stream, without the host waiting for the work ahead of it."""
     rows = np.ascontiguousarray(rows, dtype=np.uint32)
-    return torch.from_numpy(rows.view(np.int32).copy()).to(device)
+    host = torch.from_numpy(rows.view(np.int32).copy())
+    if non_blocking and torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 def offsets_to_numpy(out: torch.Tensor) -> np.ndarray:
