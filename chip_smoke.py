@@ -478,7 +478,10 @@ def _run_rows(rng) -> list:
 def phase_run_vs_plain(state: dict) -> None:
     """The persistent kernel against the plain run_loop_core on the card:
     bit-equal nonces and identical LaunchControl bookkeeping, for every
-    scripted control, at poll steps 1 and 4, on 16 rows and on 1 row."""
+    scripted control, at poll steps 1 and 4, on 16 rows and on 1 row of
+    2^22-nonce windows; then at every launch shape the persistent engine
+    makes (1, 2, 4, 8 and 16 rows at its window, poll cadence and launch
+    length), and once with a poll block past 2^30 offsets."""
     import numpy as np
 
     from tpu_dpow_torch.backend.torch_backend import TorchWorkBackend
@@ -559,11 +562,111 @@ def phase_run_vs_plain(state: dict) -> None:
         probe, window=eng.chunk, geo=geo, max_steps=8,
         poll_steps=eng.control_poll_steps), row[None],
         extra={"hit_window": off // eng.chunk, "attempts": attempt + 1})
+    _engine_launch_cases(eng, geo, rng, check)
     state["run_max_abs_err"] = max_err
     emit({"phase": "run_vs_plain", "ok": True, "max_abs_err": max_err,
           "tolerance": "bit-exact (nonces) and identical LaunchControl bookkeeping",
           "window": window, "max_steps": max_steps, "cases": len(checks),
           "plain_seconds": plain_s, "checks": checks, "card": state["card"]["smi"]})
+
+
+def _planted(eng, geo: dict, rng, difficulty: int, count: int, windows: int) -> list:
+    """``count`` random rows at ``difficulty`` with their first hit offset,
+    found by the search kernel in one launch over ``windows`` engine
+    windows; rows without a hit there are left out."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import cuda_kernel, search
+
+    rows = np.stack([search.pack_params(rng.bytes(32), difficulty, int(rng.integers(0, 1 << 63)))
+                     for _ in range(count)])
+    offs = search.offsets_to_numpy(cuda_kernel.cuda_search_chunk_batch(
+        search.params_from_numpy(rows, "cuda"), **{**geo, "nblocks": eng.nblocks * windows}))
+    return [(row, int(o)) for row, o in zip(rows, offs) if o != search.SENTINEL]
+
+
+def _row_base(row) -> int:
+    from tpu_dpow_torch.ops import search
+
+    return int(row[search.BASE_HI]) << 32 | int(row[search.BASE_LO])
+
+
+def _with(row, *, difficulty=None, base=None):
+    from tpu_dpow_torch.ops import search
+
+    row = row.copy()
+    for value, lo, hi in ((difficulty, search.DIFF_LO, search.DIFF_HI),
+                          (base, search.BASE_LO, search.BASE_HI)):
+        if value is not None:
+            row[lo], row[hi] = value & 0xFFFFFFFF, value >> 32
+    return row
+
+
+def _engine_launch_cases(eng, geo: dict, rng, check, cut: int = 1 << 30) -> None:
+    """The run kernel against the plain version at the persistent engine's
+    own launch shapes: its window, poll cadence and launch length, at each
+    batch size it packs (the batch sets each row's share of the blocks).
+
+    Every batch has a row raised at k = 0 to a target it meets in windows
+    0-3, a dry row cancelled at the poll at k = 2, rows with first hits
+    planted in windows 0-3 and a pad as the engine packs it, so both loops
+    exit within four windows. A last launch polls every 2 * ``cut`` offsets
+    (64 windows), which the kernel scans as two spans of ``cut`` = 2^30
+    (its span limit) with no poll between them; its row's first hit sits in
+    the second span."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import search
+
+    window, steps = eng.chunk, eng.persistent_steps
+    hard = (1 << 64) - (1 << 64) // (2 * window)  # first hit ~2 windows in
+    planted = iter(_planted(eng, geo, rng, hard, 48, 4))
+    pad = search.pack_params(bytes(32), 0, 0)
+    for b in (2, 4, 8, 16):
+        hits = [next(planted) for _ in range(1 + max(0, b - 3))]
+        raised, off = hits[0]
+        rows = [_with(raised, difficulty=0),
+                search.pack_params(rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 63)))]
+        rows += [r for r, _ in hits[1:]] + [pad] * (b > 2)
+        host = np.stack(rows)
+        pair = _run_pair(search.params_from_numpy(host, "cuda"), window=window, geo=geo,
+                         max_steps=steps, poll_steps=eng.control_poll_steps,
+                         events=[(0, "raise", 0, hard), (2, "cancel", 1, None)])
+        want = {0: off, **{i: o for i, (_, o) in enumerate(hits[1:], start=2)}}
+        _expect_planted(f"rows{b}/engine_launch", pair, host, want)
+        check(f"rows{b}/engine_launch", pair, host,
+              extra={"hit_windows": sorted(o // window for o in want.values())})
+
+    split_poll = 2 * cut // window
+    far = (1 << 64) - (1 << 64) // (2 * cut)  # first hit ~2 * cut in
+    for attempt in range(3):
+        found = [(r, o) for r, o in _planted(eng, geo, rng, far, 24, split_poll - 1)
+                 if o >= cut + 2 * window]
+        if found:
+            break
+    else:
+        raise AssertionError("no seed put a first hit in [cut + 2 windows, 2 * cut)")
+    row, off = found[0]
+    # No hit lies in [base, base + off), so from the later base the first
+    # hit is at offset cut + window + window // 7, in the second span's second window.
+    at = cut + window + window // 7
+    row = _with(row, base=(_row_base(row) + off - at) & MAX_U64)[None]
+    pair = _run_pair(search.params_from_numpy(row, "cuda"), window=window, geo=geo,
+                     max_steps=steps, poll_steps=split_poll)
+    _expect_planted("rows1/split_span", pair, row, {0: at})
+    check("rows1/split_span", pair, row,
+          extra={"hit_window": at // window, "poll_steps": split_poll, "attempts": attempt + 1})
+
+
+def _expect_planted(label: str, pair: dict, rows, want: dict) -> None:
+    """Both loops must return each planted row's known first hit."""
+    for i, off in want.items():
+        nonce = (_row_base(rows[i]) + off) & MAX_U64
+        for side in ("kernel", "plain"):
+            if pair[side]["nonces"][i] != nonce:
+                raise AssertionError(
+                    f"{label}: {side} row {i} gave {pair[side]['nonces'][i]:016x}, "
+                    f"planted {nonce:016x}")
 
 
 def search_hash(row) -> bytes:
@@ -895,6 +998,7 @@ async def _persistent(state: dict) -> dict:
         "polls": stats["polls"],
         "poll_round_trip_us_mean": stats["round_trip_ns"] / max(1, stats["polls"]) / 1e3,
         "poll_round_trip_us_max": stats["round_trip_ns_max"] / 1e3,
+        "queued_ms_total": stats["queued_ns"] / 1e6, "queued_ms_max": stats["queued_ns_max"] / 1e6,
         "polls_served_metric": snap["dpow_backend_persistent_polls_total"]["series"].get(""),
         "control_delivered": control,
         "hashes_scanned": hashes, "served_seconds": served_s,

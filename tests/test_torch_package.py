@@ -104,6 +104,23 @@ def test_chip_smoke_refuses_without_a_card():
     assert '"ok"' not in out.stdout
 
 
+def test_queued_launch_sleeps_until_its_start_event():
+    """A persistent launch queued behind another sleeps, its naps doubling
+    from 20 µs, until the event recorded before its kernel completes."""
+
+    class Event:
+        queries = 0
+
+        def query(self):
+            self.queries += 1
+            return self.queries == 4
+
+    event = Event()
+    waited_ns = cuda_kernel._sleep_until(event)
+    assert event.queries == 4
+    assert waited_ns >= (20 + 40 + 80) * 1000
+
+
 def seeded_rows() -> np.ndarray:
     """Pads, a 2^32 and a 2^64 carry, easy rows and a dry row."""
     rng = np.random.default_rng(41)

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import math
 import secrets
 import threading
@@ -545,18 +546,15 @@ class TorchWorkBackend(WorkBackend):
             sublanes=self.sublanes, iters=self.iters, nblocks=self.nblocks,
             group=self.group,
         )
-        if self.device.type == "cuda":
-            # Nothing here may wait on the shared stream: a successor
-            # kernel queued on it needs its own thread to serve its polls
-            # (ops/cuda_kernel.py). The rows go up without a host wait and
-            # the results come back on the host.
-            with torch.cuda.stream(self._stream()):
-                params = search.params_from_numpy(params_batch, self.device, non_blocking=True)
-                lo, hi = runloop.search_run_batch_controlled(params, None, slot, **kwargs)
-                return search.offsets_to_numpy(lo), search.offsets_to_numpy(hi)
-        params = search.params_from_numpy(params_batch, self.device)
-        lo, hi = runloop.search_run_batch_controlled(params, None, slot, **kwargs)
-        return search.offsets_to_numpy(lo), search.offsets_to_numpy(hi)
+        # Nothing here may wait on the shared stream: a successor kernel
+        # queued on it needs its own thread to serve its polls
+        # (ops/cuda_kernel.py). The rows go up without a host wait and the
+        # results come back on the host.
+        on_card = self.device.type == "cuda"
+        with torch.cuda.stream(self._stream()) if on_card else contextlib.nullcontext():
+            params = search.params_from_numpy(params_batch, self.device, non_blocking=True)
+            lo, hi = runloop.search_run_batch_controlled(params, None, slot, **kwargs)
+            return search.offsets_to_numpy(lo), search.offsets_to_numpy(hi)
 
     def _submit_launch(
         self, params_batch: np.ndarray, steps: int, slot: int = 0
@@ -570,11 +568,7 @@ class TorchWorkBackend(WorkBackend):
 
         def call_launch():
             try:
-                # Slot-free launches keep the two-argument call, which
-                # test doubles of _launch rely on.
-                if slot:
-                    return self._launch(params_batch, steps, slot)
-                return self._launch(params_batch, steps)
+                return self._launch(params_batch, steps, slot)
             finally:
                 # The control slot lives exactly as long as the launch:
                 # releasing it earlier would feed a still-running kernel

@@ -36,6 +36,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -66,8 +67,11 @@ _ABI_VERSION = 2
 launches = 0
 run_launches = 0
 # Control polls the persistent kernel made, and their round trip as the
-# kernel's leader measured it (post of the request to sight of the answer).
-run_poll_stats = {"polls": 0, "round_trip_ns": 0, "round_trip_ns_max": 0}
+# kernel's leader measured it (post of the request to sight of the answer),
+# and the host time launch threads slept while their kernel queued behind
+# another on the shared stream.
+run_poll_stats = {"polls": 0, "round_trip_ns": 0, "round_trip_ns_max": 0,
+                  "queued_ns": 0, "queued_ns_max": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -228,7 +232,8 @@ def reset_launches() -> None:
     global launches, run_launches
     with _lock:
         launches = run_launches = 0
-        run_poll_stats.update(polls=0, round_trip_ns=0, round_trip_ns_max=0)
+        run_poll_stats.update(polls=0, round_trip_ns=0, round_trip_ns_max=0, queued_ns=0,
+                              queued_ns_max=0)
 
 
 def window(sublanes: int, iters: int, nblocks: int = 1, group: int = 1) -> int:
@@ -326,6 +331,11 @@ _OUT_STATS = 6
 # Longest the poll-serving loop spins in C (without the GIL) for a request
 # before it looks whether the kernel has returned.
 POLL_SPIN_US = 200
+# Longest sleep between looks while a launch waits behind its predecessor on
+# the shared stream (up to a whole launch): the waiting thread sleeps with
+# the GIL released instead of spinning, and the delay it adds to the
+# launch's first poll stays under this bound.
+QUEUED_SLEEP_MAX_S = 1e-3
 # Mailboxes made when the library loads, of this many rows each: enough for
 # the engine's launches (max_batch 16, pipeline 2) without a pinned
 # allocation while a kernel runs.
@@ -506,6 +516,19 @@ class _PollServer:
                 return failure
 
 
+def _sleep_until(event) -> int:
+    """Sleep, doubling the nap up to QUEUED_SLEEP_MAX_S, until ``event``
+    has completed: until the work queued ahead of a launch is done and its
+    first poll is about to come. Polling the event (not blocking in the
+    driver) keeps this thread from waiting on anything but its own stream's
+    progress. Returns the nanoseconds waited."""
+    t0, nap = time.perf_counter_ns(), 20e-6
+    while not event.query():
+        time.sleep(nap)
+        nap = min(2 * nap, QUEUED_SLEEP_MAX_S)
+    return time.perf_counter_ns() - t0
+
+
 def cuda_search_run_batch_controlled(
     params_batch: torch.Tensor,
     active: Optional[torch.Tensor],
@@ -542,13 +565,15 @@ def cuda_search_run_batch_controlled(
     lib.b2_mailbox_reset(box.host)
     server = _PollServer(lib, box, rows, int(slot))
     with torch.cuda.device(params_batch.device):
-        finished = torch.cuda.Event()
+        started, finished = torch.cuda.Event(), torch.cuda.Event()
+        started.record(torch.cuda.current_stream(params_batch.device))
     base = box.out_offset(rows)
     stream = _run_launch(
         params_batch, active, window=window, max_steps=max_steps,
         poll_steps=poll_steps, out_ptr=box.dev + 4 * base, mbox_dev=box.dev,
     )
     finished.record(stream)
+    queued_ns = _sleep_until(started)
     failure = server.serve(finished)
     out = box.words[base:base + 2 * rows + _OUT_STATS].copy()
     _give_mailbox(box)  # the kernel has returned: nothing reads it any more
@@ -559,6 +584,8 @@ def cuda_search_run_batch_controlled(
         run_poll_stats["polls"] += polls
         run_poll_stats["round_trip_ns"] += total_ns
         run_poll_stats["round_trip_ns_max"] = max(run_poll_stats["round_trip_ns_max"], max_ns)
+        run_poll_stats["queued_ns"] += queued_ns
+        run_poll_stats["queued_ns_max"] = max(run_poll_stats["queued_ns_max"], queued_ns)
     if failure is not None:
         raise failure
     bits = torch.from_numpy(out[:2 * rows].view(np.int32).copy())
