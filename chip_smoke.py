@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port on one GPU: build, check, drive, time.
+"""Run the PyTorch + CUDA port on the visible GPUs: build, check, drive, time.
 
-    python3 chip_smoke.py [--phases build,kernel_vs_plain,run_vs_plain,engine,persistent,kernel_time]
+    python3 chip_smoke.py [--phases build,kernel_vs_plain,run_vs_plain,fan_vs_plain,engine,
+                                    persistent,fan,devfault,kernel_time]
 
 Drives ``tpu_dpow_torch`` only (never the JAX package). Each phase prints one
 JSON line; a failed phase raises, and the script exits nonzero without its
@@ -25,6 +26,15 @@ result lines.
                    active mask, and one row at the engine's 2^25 window with
                    its first hit past window 2. Bit-equal (lo, hi) and
                    identical LaunchControl bookkeeping, or fail.
+  fan_vs_plain     the four fan functions over every visible card against
+                   their plain versions (2^22-nonce member windows, hits
+                   planted by seed): fan_search_chunk_batch, _devices, _run,
+                   and _run_controlled under both engine policies with a
+                   raise, a per-member rebase and a cancel, its members
+                   polling in lockstep; then the run kernel's strided windows
+                   (stride 4 windows) with and without control and one
+                   stride == window case. Bit-equal nonces and identical
+                   LaunchControl fields per (row, member), or fail.
   engine           TorchWorkBackend at mainnet difficulty: 8 single requests,
                    a 16+16 concurrent burst at two difficulties, a cancel and
                    a raise_difficulty; then the work server (HTTP on
@@ -40,11 +50,37 @@ result lines.
                    round trip. Then the cancel A/B in both run modes (n=5):
                    cancel_to_stop and post_cancel, after
                    benchmarks/cancel_latency.py.
+  fan              TorchWorkBackend(devices=-1) in both run modes and both
+                   device_shard policies: 4 singles, an 8+8 burst, a raise and
+                   a cover_range that re-partitions every member shard, every
+                   work string checked with hashlib; then fan_search_run and a
+                   strided fan_search_run_controlled (4 engine windows, stride
+                   4 windows, poll steps 2, a raise and a cancel, members in
+                   lockstep), each bit-equal to its plain version, the
+                   controlled one to the rows' first hits and its
+                   LaunchControl fields per (row, member). Prints the attribution
+                   and the dpow_backend_device_* families; the kernels' launch
+                   counts (reset just before, read just after) must all be
+                   > 0 and every card must have launched. Then the fan of
+                   one against the plain engine on the same pinned requests.
+  devfault         the device fault domains on the real clock: the last
+                   card hangs at its window-2 poll (FaultyDevice) → suspect →
+                   evacuation → quarantine (one card: DevicesExhausted and a
+                   fail-fast generate; more: the rest take the range) → a
+                   probe of the wedged card fails → release → the grid drains
+                   → a probe re-admits the card → a fresh solve; health back
+                   at 0, every card synchronizes.
   kernel_time      each kernel alone and its plain version: the search kernel
                    at one engine launch shape (max_batch rows, one window),
                    the run kernel at max_batch rows x 2 windows without
-                   control; unreachable difficulty so every row scans it all;
-                   CUDA events, beside the integer-issue bound.
+                   control, contiguous and strided (4 windows apart), and one
+                   fanned launch over every card; unreachable difficulty so
+                   every row scans it all; CUDA events (host clock for the
+                   fan, whose results come back to the host), beside the
+                   integer-issue bound. The run kernel's timed results must
+                   equal the plain version's, and the strided shape is run
+                   once more with first hits in windows 0 and 1: kernel,
+                   plain version and the search kernel's first hits agree.
 
 The last lines are the kernel table as JSON, then
 ``{"ok": true, "device": {...}}``. Exits 2 without a result when no CUDA
@@ -65,13 +101,28 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernel_vs_plain", "run_vs_plain", "engine", "persistent", "kernel_time")
+PHASES = ("build", "kernel_vs_plain", "run_vs_plain", "fan_vs_plain", "engine", "persistent",
+          "fan", "devfault", "kernel_time")
 MAINNET = 0xFFFFFFF800000000  # send/change blocks
 RECEIVE = 0xFFFFFE0000000000  # receive blocks
 MAX_U64 = (1 << 64) - 1
 SEED = 2026
-# Windows per row of the run kernel's timed launch (kernel_time phase).
+# Windows per row of the run kernel's timed launch (kernel_time phase), and
+# the stride of its strided launch, in windows.
 RUN_TIME_STEPS = 2
+STRIDE_WINDOWS = 4
+# Member windows of the fan_vs_plain phase: 2^22 nonces.
+FAN_CHECK_GEO = dict(sublanes=32, iters=1024, nblocks=1, group=8)
+# The fan phase's raise (from, to), and its cover_range job's target: ~2^32
+# expected nonces, so the command lands while the job runs.
+FAN_RAISE = (0xFFFFFFFF00000000, 0xFFFFFFFF80000000)
+# The fan phase's fan_search_run and strided fan_search_run_controlled:
+# windows per member, the rows' target (first hit ~2^25 nonces in, one
+# engine window) and the scripted control (row 0 raised at k = 0 to a first
+# hit ~2^26 in, never-solving row 6 cancelled at k = 2).
+FAN_STEPS = 4
+FAN_STRIDED_TARGET = (1 << 64) - (1 << 39)
+FAN_STRIDED_EVENTS = [(0, "raise", 0, (1 << 64) - (1 << 38)), (2, "cancel", 6, None)]
 
 # H100 SXM integer issue: each SM has 4 sub-partitions, each issuing one
 # warp instruction (32 lanes) per clock. Integer add, logic, shift and
@@ -419,10 +470,11 @@ def _nonces(lo, hi) -> list:
 
 
 def _run_pair(params, *, window: int, geo: dict, max_steps: int, poll_steps=None,
-              events=None, active=None) -> dict:
+              events=None, active=None, stride=None) -> dict:
     """One launch of the run kernel and one of the plain run_loop_core on the
-    same rows (and, with ``poll_steps``, the same scripted control) → their
-    nonces, bookkeeping and times."""
+    same rows (and, with ``poll_steps``, the same scripted control), windows
+    ``stride`` apart (None: contiguous) → their nonces, bookkeeping and
+    times."""
     import torch
 
     from tpu_dpow_torch.ops import control, runloop
@@ -437,13 +489,15 @@ def _run_pair(params, *, window: int, geo: dict, max_steps: int, poll_steps=None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if side == "kernel" and slot is None:
-                lo, hi = runloop.search_run_batch(params, active, max_steps=max_steps, **geo)
+                lo, hi = runloop.search_run_batch(params, active, max_steps=max_steps,
+                                                  stride=stride, **geo)
             elif side == "kernel":
                 lo, hi = runloop.search_run_batch_controlled(
-                    params, active, slot, max_steps=max_steps, poll_steps=poll_steps, **geo)
+                    params, active, slot, max_steps=max_steps, poll_steps=poll_steps,
+                    stride=stride, **geo)
             else:
                 lo, hi = runloop.run_loop_core(
-                    params, active, launch=runloop.plain_launch(window), window=window,
+                    params, active, launch=runloop.plain_launch(window), window=stride or window,
                     max_steps=max_steps, poll_steps=poll_steps or 0,
                     control_poll=None if slot is None else runloop.make_control_poll(slot))
             got = _nonces(lo, hi)
@@ -674,6 +728,268 @@ def search_hash(row) -> bytes:
     import numpy as np
 
     return np.ascontiguousarray(row[:8], dtype=np.uint32).tobytes()
+
+
+class ZeroClock:
+    """Control stamps that never move: members polling from several threads
+    read the clock in no fixed order, so every delivered latency is 0."""
+
+    def time(self) -> float:
+        return 0.0
+
+
+def lockstep_control(rows: int, n: int, events: list):
+    """A LaunchControl for a fan of ``n`` members that poll in lockstep:
+    every member meets at a barrier in its poll, member 0 fires each
+    (k_min, action, row, arg) event at its first poll with k >= k_min, and
+    all read after a second barrier, so each member sees each command at the
+    same window in the kernel's launch and in the plain one. The rows need
+    one that stays live to max_steps, so every member polls every block."""
+    import threading
+
+    from tpu_dpow_torch.ops import control
+
+    class Lockstep(control.LaunchControl):
+        def poll(self, dev, k, done):
+            self.barrier.wait()
+            if int(dev) == 0:
+                for i, (k_min, action, row, arg) in enumerate(events):
+                    if k >= k_min and i not in self.fired:
+                        self.fired.add(i)
+                        if action == "cancel":
+                            self.cancel(row)
+                        elif action == "raise":
+                            self.raise_difficulty(row, arg, epoch=1)
+                        else:
+                            self.rebase(row, arg, epoch=2)
+            self.barrier.wait()
+            return super().poll(dev, k, done)
+
+    c = Lockstep(rows, clock=ZeroClock(), n_dev=n)
+    c.fired, c.barrier = set(), threading.Barrier(n, timeout=120)
+    return c
+
+
+def member_bookkeeping(c, n: int) -> dict:
+    return {
+        "polls": c.polls, "last_k": c.last_k, "done_at_k": sorted(c.done_at_k.items()),
+        "delivered": sorted(c.delivered),
+        "fields": [(c.effective_base(r, d), c.effective_difficulty(r, d),
+                    c.effective_epoch(r, -1, d), c.applied_at_k(r, d))
+                   for r in range(c.rows) for d in range(n)],
+    }
+
+
+def _plain_members(stk, devs, window: int, stride: int, max_steps: int, slot=None,
+                   poll_steps: int = 0) -> tuple:
+    """The plain run_loop_core of every member on its own card, windows
+    ``stride`` apart, each member on a thread of its own polling ``slot`` as
+    that member → (lo, hi) uint32[D, B]."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import runloop, search
+    from tpu_dpow_torch.parallel import fan_search
+
+    def member(i, d):
+        lo, hi = runloop.run_loop_core(
+            search.params_from_numpy(stk[i], d), None, launch=runloop.plain_launch(window),
+            window=stride, max_steps=max_steps, poll_steps=poll_steps,
+            control_poll=None if slot is None else runloop.make_control_poll(slot, dev=i))
+        return search.offsets_to_numpy(lo), search.offsets_to_numpy(hi)
+
+    out = fan_search._on_member_threads(member, devs, None)
+    return np.stack([lo for lo, _ in out]), np.stack([hi for _, hi in out])
+
+
+def _controlled_fan_pair(stk, devs, *, window: int, stride: int, max_steps: int,
+                         poll_steps: int, geo: dict, events: list) -> dict:
+    """fan_search_run_controlled and its plain version, member by member, on
+    the same caller-baked rows, each under a lockstep_control scripted with
+    ``events`` → per side ((lo, hi) uint32[D, B], seconds). Fails unless
+    every LaunchControl field per (row, member) agrees."""
+    from tpu_dpow_torch.ops import control
+    from tpu_dpow_torch.parallel import fan_search
+
+    n, sides, books = len(devs), {}, {}
+    for side in ("kernel", "plain"):
+        c = lockstep_control(stk.shape[1], n, events)
+        slot = control.register(c)
+        try:
+            t0 = time.perf_counter()
+            if side == "kernel":
+                out = fan_search.fan_search_run_controlled(
+                    stk, slot, devices=devs, chunk_per_shard=window, max_steps=max_steps,
+                    poll_steps=poll_steps, stride=stride, **geo)
+            else:
+                out = _plain_members(stk, devs, window, stride, max_steps, slot, poll_steps)
+            sides[side] = (out, time.perf_counter() - t0)
+        finally:
+            control.release(slot)
+        books[side] = member_bookkeeping(c, n)
+    if books["kernel"] != books["plain"]:
+        raise AssertionError(f"controlled fan bookkeeping: {books['kernel']} vs {books['plain']}")
+    sides["polls"] = books["kernel"]["polls"]
+    return sides
+
+
+def _strided_first_hits(rows, geo: dict, stride: int, steps: int, device) -> list:
+    """Each uint32[12] row's first hit over ``steps`` windows ``stride``
+    apart, window by window through the search kernel (held against its
+    plain version in kernel_vs_plain) → its nonce, or MAX_U64 where every
+    window is dry: what the run loop must return without control."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import cuda_kernel, search
+
+    first = [MAX_U64] * rows.shape[0]
+    for k in range(steps):
+        moved = np.stack([_with(r, base=(_row_base(r) + k * stride) & MAX_U64) for r in rows])
+        offs = search.offsets_to_numpy(cuda_kernel.cuda_search_chunk_batch(
+            search.params_from_numpy(moved, device), **geo))
+        for i, off in enumerate(offs):
+            if first[i] == MAX_U64 and off != search.SENTINEL:
+                first[i] = (_row_base(moved[i]) + int(off)) & MAX_U64
+    return first
+
+
+def _hit_windows(rows, nonces, stride: int) -> list:
+    """The window (of windows ``stride`` apart) each found nonce lies in."""
+    return [((n - _row_base(r)) & MAX_U64) // stride for r, n in zip(rows, nonces)
+            if n != MAX_U64]
+
+
+def _check_nonces(label: str, nonces, rows_host, difficulties=None) -> None:
+    """Every found nonce meets its row's target (or the raised one) by hashlib."""
+    from tpu_dpow_torch.ops import search
+
+    for i, nonce in enumerate(nonces):
+        if nonce == MAX_U64:
+            continue
+        d = int(rows_host[i, search.DIFF_HI]) << 32 | int(rows_host[i, search.DIFF_LO])
+        if difficulties is not None and difficulties[i] is not None:
+            d = difficulties[i]
+        if ref_value(nonce, search_hash(rows_host[i])) < d:
+            raise AssertionError(f"{label}: nonce {nonce:016x} of row {i} fails hashlib")
+
+
+def phase_fan_vs_plain(state: dict) -> None:
+    """The four fan functions over every visible card against their plain
+    versions on the same rows (2^22-nonce member windows, planted hits):
+    fan_search_chunk_batch against one plain scan of the global window,
+    fan_search_devices and fan_search_run member by member, and
+    fan_search_run_controlled under both engine policies ('split': member
+    windows contiguous; 'interleave': stride = members x window) with a
+    raise at k = 0, a per-member rebase at k = 1 and a cancel at k = 2 —
+    nonces bit-equal and every LaunchControl field per (row, member)
+    identical. Then the run kernel's strided windows on one card (stride =
+    4 windows) against the plain loop, without and with control (a raise
+    at k = 0, a cancel at k = 2), and one stride == window case."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import cuda_kernel, search
+    from tpu_dpow_torch.parallel import fan_search
+
+    devs = fan_search.fan_devices(-1, "cuda")
+    n = len(devs)
+    geo = FAN_CHECK_GEO
+    window = cuda_kernel.window(**geo)
+    rng = np.random.default_rng(SEED + 6)
+    spec = _run_rows(rng)
+    host16 = np.stack([search.pack_params(h, d, b) for h, d, b in spec])
+    # Pads, the 2^64 carry, hits expected 2^16-2^21 offsets in, the dry row,
+    # and a second row that never solves (it keeps every member polling).
+    host = np.concatenate([host16[[0, 1, 2, 3, 4, 5, 6, 7, 15]],
+                           search.pack_params(rng.bytes(32), MAX_U64 - 1, 77)[None]])
+    harder = (1 << 64) - (1 << 42)
+    checks, max_err, plain_s = [], 0, 0.0
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def agree(label, got, want, extra=None, secs=(0.0, 0.0)):
+        nonlocal max_err, plain_s
+        g, w = np.asarray(got).ravel().tolist(), np.asarray(want).ravel().tolist()
+        err = max((abs(int(a) - int(b)) for a, b in zip(g, w)), default=0)
+        max_err = max(max_err, err)
+        plain_s += secs[1]
+        if err or np.shape(got) != np.shape(want):
+            raise AssertionError(f"fan != plain ({label}): {g} vs {w}")
+        checks.append({"case": label, "kernel_s": secs[0], "plain_s": secs[1], **(extra or {})})
+
+    # fan_search_chunk_batch: global offsets against one plain scan.
+    got, ks = timed(lambda: fan_search.fan_search_chunk_batch(
+        host16, devices=devs, chunk_per_shard=window, **geo))
+    want, ps = timed(lambda: search.offsets_to_numpy(search.search_chunk_batch(
+        search.params_from_numpy(host16, devs[0]), chunk_size=n * window)))
+    for i, off in enumerate(got):
+        h, d, b = spec[i]
+        if off != search.SENTINEL and ref_value(b + int(off), h) < d:
+            raise AssertionError(f"fan chunk offset {off} of row {i} fails hashlib")
+    agree("chunk_batch", got, want, {"hits": int((got != search.SENTINEL).sum())}, (ks, ps))
+
+    # fan_search_devices: caller-baked member bases, local offsets.
+    stacked = fan_search.stagger(host16, n, 1 << 40)
+    got, ks = timed(lambda: fan_search.fan_search_devices(
+        stacked, devices=devs, chunk_per_shard=window, **geo))
+    want, ps = timed(lambda: np.stack([search.offsets_to_numpy(search.search_chunk_batch(
+        search.params_from_numpy(stacked[i], devs[i]), chunk_size=window)) for i in range(n)]))
+    agree("devices", got, want, {"hits": int((got != search.SENTINEL).sum())}, (ks, ps))
+
+    # fan_search_run: strided member windows (stride = n windows) and the
+    # host election.
+    (lo, hi), ks = timed(lambda: fan_search.fan_search_run(
+        host, devices=devs, chunk_per_shard=window, max_steps=6, **geo))
+    (want_lo, want_hi), ps = timed(lambda: fan_search.elect(
+        host, *_plain_members(fan_search.stagger(host, n, window), devs, window,
+                              n * window, 6)))
+    nonces = [(int(h) << 32) | int(x) for x, h in zip(lo, hi)]
+    _check_nonces("fan run", nonces, host)
+    agree("run", np.stack([lo, hi]), np.stack([want_lo, want_hi]),
+          {"hits": sum(x != MAX_U64 for x in nonces)}, (ks, ps))
+
+    # fan_search_run_controlled under both policies, lockstep-scripted.
+    rebase_to = [int(rng.integers(0, 1 << 63)) for _ in range(n)]
+    events = [(0, "raise", 4, harder), (1, "rebase", 3, rebase_to), (2, "cancel", 8, None)]
+    for policy, stk, stride in (("split", fan_search.stagger(host, n, 1 << 40), window),
+                                ("interleave", fan_search.stagger(host, n, window), n * window)):
+        pair = _controlled_fan_pair(stk, devs, window=window, stride=stride, max_steps=5,
+                                    poll_steps=1, geo=geo, events=events)
+        (k_out, k_s), (p_out, p_s) = pair["kernel"], pair["plain"]
+        for i in range(n):
+            member = [(int(h) << 32) | int(x) for x, h in zip(k_out[0][i], k_out[1][i])]
+            _check_nonces(f"controlled {policy} member {i}", member, stk[i],
+                          [harder if r == 4 else None for r in range(host.shape[0])])
+        agree(f"run_controlled/{policy}", np.stack(k_out), np.stack(p_out),
+              {"polls": pair["polls"], "stride": stride}, (k_s, p_s))
+
+    # The run kernel's strided windows on one card, and stride == window.
+    params = search.params_from_numpy(host, devs[0])
+    for label, stride, poll_steps in (("strided4", 4 * window, None),
+                                      ("strided4/poll1", 4 * window, 1),
+                                      ("strided4/poll2", 4 * window, 2),
+                                      ("contiguous/poll1", window, 1)):
+        events1 = [] if poll_steps is None else [(0, "raise", 4, harder), (2, "cancel", 8, None)]
+        pair = _run_pair(params, window=window, geo=geo, max_steps=6, poll_steps=poll_steps,
+                         events=events1, stride=stride)
+        k, p = pair["kernel"], pair["plain"]
+        if k["control"] != p["control"]:
+            raise AssertionError(f"{label}: bookkeeping {k['control']} vs {p['control']}")
+        _check_nonces(label, k["nonces"], host,
+                      None if k["control"] is None else k["control"]["difficulty"])
+        agree(label, k["nonces"], p["nonces"],
+              {"hits": sum(x != MAX_U64 for x in k["nonces"]), "stride": stride,
+               "polls": None if k["control"] is None else k["control"]["polls"]},
+              (k["seconds"], p["seconds"]))
+    state["fan_max_abs_err"] = state["strided_max_abs_err"] = max_err
+    emit({"phase": "fan_vs_plain", "ok": True, "members": n, "window": window,
+          "max_abs_err": max_err,
+          "tolerance": "bit-exact (offsets, nonces) and identical LaunchControl fields per "
+                       "(row, member)",
+          "run_abi": cuda_kernel.load_run_library().b2_abi_version(),
+          "cases": len(checks), "plain_seconds": plain_s, "checks": checks,
+          "card": state["card"]["smi"]})
 
 
 async def _engine(state: dict) -> dict:
@@ -1020,6 +1336,358 @@ def phase_persistent(state: dict) -> None:
     emit(result)
 
 
+def _device_families() -> dict:
+    from tpu_dpow_torch import obs
+
+    return {name: fam["series"] for name, fam in obs.snapshot().items()
+            if name.startswith("dpow_backend_device_")}
+
+
+async def _fan_engine(mode: str, policy: str, rng) -> dict:
+    """One fan engine over every visible card: 4 mainnet singles, an 8+8
+    burst, a raise and a cover_range (mid-launch in persistent mode), every
+    work string checked with hashlib."""
+    from tpu_dpow_torch.backend.torch_backend import TorchWorkBackend
+    from tpu_dpow_torch.models import WorkRequest
+
+    new_hash = lambda: rng.bytes(32).hex().upper()
+    backend = TorchWorkBackend(devices=-1, run_mode=mode, device_shard=policy)
+    await backend.setup()
+    solves, wins = 0, []
+
+    async def solve(h: str, difficulty: int, **kw) -> str:
+        nonlocal solves
+        work = await _result(backend, asyncio.ensure_future(
+            backend.generate(WorkRequest(h, difficulty, **kw))), f"a {mode} fan solve")
+        if ref_value(int(work, 16), bytes.fromhex(h)) < difficulty:
+            raise AssertionError(f"invalid work {work} for {h} at {difficulty:016x}")
+        solves += 1
+        wins.append(None if backend.last_win is None else backend.last_win["device"])
+        return work
+
+    t0 = time.perf_counter()
+    for _ in range(4):
+        await solve(new_hash(), MAINNET)
+    singles_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await asyncio.gather(*[solve(new_hash(), MAINNET) for _ in range(8)],
+                         *[solve(new_hash(), RECEIVE) for _ in range(8)])
+    burst_s = time.perf_counter() - t0
+
+    # Raise: mid-launch (persistent, delivered at the next poll) or before
+    # the first result (chunked: the next pack carries the raised target).
+    raise_from, raise_to = FAN_RAISE
+    for attempt in range(1, 4):
+        h = new_hash()
+        task = asyncio.ensure_future(backend.generate(WorkRequest(h, raise_from)))
+        if mode == "persistent":
+            rec, row = await _running_control(backend, h)
+        else:
+            await asyncio.sleep(0)
+        took = await backend.raise_difficulty(h, raise_to)
+        work = await _result(backend, task, "the raised fan job")
+        if ref_value(int(work, 16), bytes.fromhex(h)) < (raise_to if took else raise_from):
+            raise AssertionError(f"raised fan job returned invalid work {work}")
+        solves += 1
+        if took and (mode != "persistent" or any(
+                a == "raise" for r, a, _l, _t in rec.control.delivered if r == row)):
+            break
+    else:
+        raise AssertionError(f"no raise_difficulty landed on the {mode} fan in 3 tries")
+    raised = {"work": work, "attempts": attempt}
+
+    # cover_range: every member shard re-partitions into range B.
+    cover_d, start_a, start_b, length = FAN_RAISE[0], 3 << 40, 0x5A5A << 44, 1 << 40
+    for attempt in range(1, 4):
+        h = new_hash()
+        task = asyncio.ensure_future(
+            backend.generate(WorkRequest(h, cover_d, nonce_range=(start_a, length))))
+        if mode == "persistent":
+            rec, row = await _running_control(backend, h)
+        else:
+            await _wait_for(lambda: any(j.block_hash == h for r in backend._inflight
+                                        for j in r.jobs), "a chunked fan launch", backend=backend)
+        took = await backend.cover_range(h, (start_b, length))
+        part = None
+        if took:
+            job = backend._jobs[h]
+            part = (job.part_start, None if job.dev_bases is None else
+                    [job.dev_bases[d] for d in backend._fan_active])
+        work = await _result(backend, task, "the re-covered fan job")
+        if ref_value(int(work, 16), bytes.fromhex(h)) < cover_d:
+            raise AssertionError(f"re-covered fan job returned invalid work {work}")
+        solves += 1
+        if took and start_b <= int(work, 16) < start_b + 2 * length:
+            if part[0] != start_b:
+                raise AssertionError(f"cover_range left the partition at {part[0]:x}")
+            if mode == "persistent" and "rebase" not in [
+                    a for r, a, _l, _t in rec.control.delivered if r == row]:
+                raise AssertionError("work came from range B but no rebase was delivered")
+            break
+    else:
+        raise AssertionError(f"no cover_range landed on the {mode} fan in 3 tries")
+    covered = {"work": work, "attempts": attempt, "range_b": f"{start_b:016x}",
+               "member_bases": None if part[1] is None else [f"{b:016x}" for b in part[1]]}
+    await backend.close()
+    return {
+        "run_mode": mode, "device_shard": policy, "members": len(backend.fan),
+        "solves": solves, "singles_seconds": singles_s, "burst_seconds": burst_s,
+        "raised": raised, "covered": covered, "win_devices": wins,
+        "last_win": backend.last_win, "device_ema_hs": backend.device_ema,
+        "hashes_scanned": backend.total_hashes,
+    }
+
+
+async def _fan_of_one_price(rng) -> dict:
+    """The fan's plumbing priced on one card, the A/B of
+    tpu_dpow/parallel/fan_search.py's fan of one: the plain engine and a
+    one-member fan engine solve the same pinned requests (so they scan the
+    same nonces and must return the same work), in turns plain, fan, fan,
+    plain."""
+    import numpy as np
+
+    from tpu_dpow_torch.backend.torch_backend import TorchWorkBackend
+    from tpu_dpow_torch.models import WorkRequest
+
+    reqs = [(rng.bytes(32).hex().upper(), int(rng.integers(0, 1 << 62))) for _ in range(8)]
+    runs = {"plain": [], "fan1": []}
+    works = {}
+    for name in ("plain", "fan1", "fan1", "plain"):
+        backend = TorchWorkBackend(devices=1 if name == "fan1" else 0)
+        await backend.setup()
+        t0 = time.perf_counter()
+        got = [await backend.generate(WorkRequest(h, MAINNET, nonce_range=(b, 0)))
+               for h, b in reqs]
+        runs[name].append(time.perf_counter() - t0)
+        await backend.close()
+        if works.setdefault(name, got) != got:
+            raise AssertionError(f"{name} engine returned other work for the same requests")
+    if works["plain"] != works["fan1"]:
+        raise AssertionError("a fan of one and the plain engine disagree on pinned requests")
+    return {"requests": len(reqs), "seconds": runs,
+            "fan1_over_plain": float(np.mean(runs["fan1"]) / np.mean(runs["plain"]))}
+
+
+async def _fan(state: dict) -> dict:
+    import numpy as np
+
+    from tpu_dpow_torch import obs
+    from tpu_dpow_torch.ops import cuda_kernel
+    from tpu_dpow_torch.parallel import fan_search
+
+    rng = np.random.default_rng(SEED + 7)
+    devs = fan_search.fan_devices(-1, "cuda")
+    n = len(devs)
+    # The fan functions as a caller drives them (benchmarks/multichip.py's
+    # fan_search_run), and fan_search_run_controlled with an explicit stride
+    # of 4 member windows (the run kernel's strided mode, at the engine's
+    # window and poll cadence), both held against their plain versions. The
+    # rows' first hits are found before the counts are zeroed.
+    geo = dict(sublanes=32, iters=1024, nblocks=8, group=8)
+    chunk, stride = cuda_kernel.window(**geo), STRIDE_WINDOWS * cuda_kernel.window(**geo)
+    rows, stk, want = _fan_strided_rows(rng, devs, geo, stride)
+    obs.reset()
+    cuda_kernel.reset_launches()
+    configs = [await _fan_engine(mode, policy, rng)
+               for mode in ("chunked", "persistent") for policy in ("split", "interleave")]
+
+    t0 = time.perf_counter()
+    lo, hi = fan_search.fan_search_run(rows, devices=devs, chunk_per_shard=chunk,
+                                       max_steps=FAN_STEPS, **geo)
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_lo, plain_hi = fan_search.elect(rows, *_plain_members(
+        fan_search.stagger(rows, n, chunk), devs, chunk, n * chunk, FAN_STEPS))
+    run_plain_s = time.perf_counter() - t0
+    fan_run = [(int(h) << 32) | int(x) for x, h in zip(lo, hi)]
+    _check_nonces("fan_search_run", fan_run, rows)
+    if fan_run != [(int(h) << 32) | int(x) for x, h in zip(plain_lo, plain_hi)]:
+        raise AssertionError(f"fan_search_run != plain: {fan_run} vs {plain_lo}, {plain_hi}")
+
+    pair = _controlled_fan_pair(stk, devs, window=chunk, stride=stride, max_steps=FAN_STEPS,
+                                poll_steps=2, geo=geo, events=FAN_STRIDED_EVENTS)
+    (lo_d, hi_d), strided_s = pair["kernel"]
+    plain_lo, plain_hi = pair["plain"][0]
+    if not (np.array_equal(lo_d, plain_lo) and np.array_equal(hi_d, plain_hi)):
+        raise AssertionError(f"strided fan_search_run_controlled != plain: {pair}")
+    members = [[(int(h) << 32) | int(x) for x, h in zip(lo_d[i], hi_d[i])] for i in range(n)]
+    if members != want:
+        raise AssertionError(f"strided fan_search_run_controlled {members} != first hits {want}")
+    raised = [FAN_STRIDED_EVENTS[0][3]] + [None] * (rows.shape[0] - 1)
+    strided = [(int(h) << 32) | int(x) for x, h in zip(*fan_search.elect(rows, lo_d, hi_d))]
+    _check_nonces("strided fan_search_run_controlled", strided, rows, raised)
+    launches = {"search": cuda_kernel.launches, "run": cuda_kernel.run_launches,
+                "run_strided": cuda_kernel.run_strided_launches}
+    families = _device_families()
+    per_device = families.get("dpow_backend_device_launches_total", {})
+    if any(per_device.get(str(d), 0) <= 0 for d in range(n)):
+        raise AssertionError(f"a card of the fan launched nothing: {per_device}")
+    if launches["search"] <= 0 or launches["run"] <= 0 or launches["run_strided"] <= 0:
+        raise AssertionError(f"the fan phase missed a kernel: {launches}")
+    price = await _fan_of_one_price(rng)
+    return {
+        "phase": "fan", "ok": True, "members": n, "launches": launches,
+        "configs": configs, "device_families": families,
+        "fan_search_run": {"hit_windows": _hit_windows(rows, fan_run, n * chunk),
+                           "s": run_s, "plain_s": run_plain_s},
+        "strided_controlled": {"stride": stride, "polls": pair["polls"],
+                               "hit_windows": [_hit_windows(stk[i], members[i], stride)
+                                               for i in range(n)],
+                               "s": strided_s, "plain_s": pair["plain"][1]},
+        "tolerance": "bit-exact against the plain versions and the first hits",
+        "fan_of_one_price": price, "card": state["card"]["smi"],
+    }
+
+
+def _fan_strided_rows(rng, devs, geo: dict, stride: int) -> tuple:
+    """The fan phase's rows for fan_search_run and the strided
+    fan_search_run_controlled: 6 rows whose first hit is ~1 window in and 2
+    that never solve (the last keeps every member polling to the end) →
+    (rows, rows staggered one window per member, each member's first hits
+    over FAN_STEPS strided windows under the scripted raise). Drawn again
+    until member 0 has hits both in window 0 and in a later window."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import cuda_kernel, search
+    from tpu_dpow_torch.parallel import fan_search
+
+    chunk = cuda_kernel.window(**geo)
+    for _ in range(8):
+        rows = np.stack(
+            [search.pack_params(rng.bytes(32), FAN_STRIDED_TARGET, int(rng.integers(0, 1 << 63)))
+             for _ in range(6)]
+            + [search.pack_params(rng.bytes(32), MAX_U64 - 1, int(rng.integers(0, 1 << 63)))
+               for _ in range(2)])
+        stk = fan_search.stagger(rows, len(devs), chunk)
+        raised = stk.copy()
+        raised[:, 0] = [_with(r, difficulty=FAN_STRIDED_EVENTS[0][3]) for r in stk[:, 0]]
+        want = [_strided_first_hits(raised[i], geo, stride, FAN_STEPS, d)
+                for i, d in enumerate(devs)]
+        windows = set(_hit_windows(stk[0], want[0], stride))
+        if 0 in windows and max(windows, default=0) > 0:
+            return rows, stk, want
+    raise AssertionError("no seed put member 0's first hits in window 0 and a later one")
+
+
+def phase_fan(state: dict) -> None:
+    result = asyncio.run(_fan(state))
+    state["fan_launches"] = result["launches"]["search"] + result["launches"]["run"]
+    state["strided_launches"] = result["launches"]["run_strided"]
+    emit(result)
+
+
+async def _devfault(state: dict) -> dict:
+    """The device fault domains on the card, on the real clock: the last
+    card's kernel hangs at its window-2 poll (FaultyDevice) → suspect →
+    evacuation → quarantine; with one card the in-flight job fails with
+    DevicesExhausted and a new generate fails fast, with more the job's
+    range lands on the rest; a probe of the still-wedged card hangs with it
+    and fails; release → the wedged grid drains → a probe re-admits the
+    card → a fresh solve. Health ends at 0 on every card, and every card
+    synchronizes (no grid left running)."""
+    import numpy as np
+    import torch
+
+    from tpu_dpow_torch import obs
+    from tpu_dpow_torch.backend import DevicesExhausted, WorkCancelled
+    from tpu_dpow_torch.backend.torch_backend import TorchWorkBackend
+    from tpu_dpow_torch.chaos import FaultyDevice
+    from tpu_dpow_torch.models import WorkRequest
+    from tpu_dpow_torch.resilience import HEALTHY, QUARANTINED
+
+    rng = np.random.default_rng(SEED + 8)
+    new_hash = lambda: rng.bytes(32).hex().upper()
+    obs.reset()
+
+    def metric(name, label=""):
+        return obs.snapshot().get(name, {}).get("series", {}).get(label, 0)
+
+    backend = TorchWorkBackend(devices=-1, run_mode="persistent", device_suspect_after=3.0,
+                               device_probe_interval=4.0, close_join_timeout=10.0)
+    await backend.setup()
+    n = len(backend.fan)
+    last = n - 1
+    h = new_hash()
+    await _result(backend, asyncio.ensure_future(backend.generate(WorkRequest(h, RECEIVE))),
+                  "the warm-up solve")
+    marks, t0 = {}, time.perf_counter()
+    with FaultyDevice() as fd:
+        fd.hang_at_poll(last, 2)
+        h = new_hash()
+        task = asyncio.ensure_future(backend.generate(WorkRequest(h, MAX_U64 - 1)))
+        await _wait_for(lambda: any(e[0] == "poll" and e[1] == last for e in fd.events),
+                        "the hang", backend=backend)
+        marks["hung_s"] = time.perf_counter() - t0
+        wedged = next(r for r in backend._inflight
+                      if r.control is not None and any(j.block_hash == h for j in r.jobs))
+        await _wait_for(lambda: backend._dfd.state(last) == QUARANTINED, "the quarantine",
+                        backend=backend)
+        marks["quarantined_s"] = time.perf_counter() - t0
+        if metric("dpow_backend_evacuations_total", "stalled_poll") != 1:
+            raise AssertionError("the suspect card's range was not evacuated once")
+        if n == 1:
+            try:
+                await _result(backend, task, "the exhausted job")
+                raise AssertionError("the in-flight job survived zero healthy cards")
+            except DevicesExhausted:
+                marks["exhausted_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            try:
+                await backend.generate(WorkRequest(new_hash(), RECEIVE))
+                raise AssertionError("generate() served with every card quarantined")
+            except DevicesExhausted:
+                marks["fail_fast_ms"] = (time.perf_counter() - t1) * 1e3
+        else:
+            job = backend._jobs[h]
+            if backend._fan_active != list(range(last)) or job.part_start == 0:
+                raise AssertionError(f"no evacuation onto the rest: {backend._fan_active}")
+            marks["evacuated_to"] = backend._fan_active
+            await backend.cancel(h)
+            try:
+                await task
+            except WorkCancelled:
+                pass
+            h = new_hash()
+            await _result(backend, asyncio.ensure_future(
+                backend.generate(WorkRequest(h, MAINNET))), "a solve at degraded width")
+        # A probe of the still-wedged card hangs with it, and fails.
+        leaked0 = metric("dpow_backend_launch_threads_leaked_total")
+        await _wait_for(lambda: metric("dpow_backend_launch_threads_leaked_total") > leaked0,
+                        "a failed probe of the wedged card", timeout=30.0, backend=backend)
+        marks["failed_probe_s"] = time.perf_counter() - t0
+        fd.release(last)
+    await _wait_for(wedged.thread_done.is_set, "the wedged grid to drain", backend=backend)
+    marks["drained_s"] = time.perf_counter() - t0
+    await _wait_for(lambda: backend._dfd.state(last) == HEALTHY, "the re-admission",
+                    timeout=30.0, backend=backend)
+    marks["readmitted_s"] = time.perf_counter() - t0
+    h = new_hash()
+    work = await _result(backend, asyncio.ensure_future(
+        backend.generate(WorkRequest(h, MAINNET))), "the fresh solve")
+    if ref_value(int(work, 16), bytes.fromhex(h)) < MAINNET:
+        raise AssertionError(f"invalid work {work} after re-admission")
+    health = {str(d): metric("dpow_backend_device_health", str(d)) for d in range(n)}
+    if any(health.values()):
+        raise AssertionError(f"health did not return to 0: {health}")
+    snap = obs.snapshot()
+    await backend.close()
+    for d in backend.fan:
+        torch.cuda.synchronize(d)
+    return {
+        "phase": "devfault", "ok": True, "members": n, "wedged_member": last,
+        "marks": marks, "health": health,
+        "quarantine_transitions": snap["dpow_backend_quarantine_total"]["series"],
+        "evacuations": snap["dpow_backend_evacuations_total"]["series"],
+        "threads_leaked": snap["dpow_backend_launch_threads_leaked_total"]["series"],
+        "injected": snap.get("dpow_chaos_injected_total", {}).get("series"),
+        "fresh_work": work, "card": state["card"]["smi"],
+    }
+
+
+def phase_devfault(state: dict) -> None:
+    emit(asyncio.run(_devfault(state)))
+
+
 def phase_kernel_time(state: dict) -> None:
     import numpy as np
     import torch
@@ -1074,6 +1742,7 @@ def phase_kernel_time(state: dict) -> None:
         "bound_by": "operations" if op_bound_ms >= byte_bound_ms else "bytes",
     }
     run = _time_run_kernel(state, eng, params, timed)
+    fan = _time_fan(state, eng, host, geo, op_bound_ms, byte_bound_ms)
     emit({
         "phase": "kernel_time", "ok": True, "rows": eng.max_batch, "span": span,
         "nonces": nonces, "kernel_ms": kernel_ms, "kernel_ms_repeat": kernel_ms_after,
@@ -1083,33 +1752,109 @@ def phase_kernel_time(state: dict) -> None:
         "int_instr_per_nonce": sum(state["sass"].values()), "op_bound_ms": op_bound_ms,
         "int32_lane_bound_ms": int32_lane_bound_ms,
         "byte_bound_ms": byte_bound_ms, "bound_share": op_bound_ms / kernel_ms,
-        "run_kernel": run,
+        "run_kernel": run, "fan": fan,
         "sms": c["sms"], "max_sm_mhz": c["max_sm_mhz"], "card": c["smi"],
     })
+
+
+def _time_fan(state: dict, eng, host, geo: dict, op_bound_ms: float,
+              byte_bound_ms: float) -> dict:
+    """One fanned launch at the engine's full shape over every visible card
+    (max_batch rows x one window per member, fan_search_devices, results on
+    the host), host-timed, and its plain version member by member. Then the
+    fan's plumbing on one card: a one-member fan_search_devices against the
+    plain path's launch and readback on the same rows, in turns plain, fan,
+    fan, plain. The bound is one member's: members run at once, one per
+    card."""
+    import numpy as np
+    import torch
+
+    from tpu_dpow_torch.ops import cuda_kernel, search
+    from tpu_dpow_torch.parallel import fan_search
+
+    devs = fan_search.fan_devices(-1, "cuda")
+    span = cuda_kernel.window(**geo)
+    stacked = fan_search.stagger(host, len(devs), span)
+
+    def host_ms(fn, reps: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    fanned = lambda: fan_search.fan_search_devices(stacked, devices=devs, chunk_per_shard=span,
+                                                   **geo)
+    plain = lambda: [search.offsets_to_numpy(search.search_chunk_batch(
+        search.params_from_numpy(stacked[i], d), chunk_size=span)) for i, d in enumerate(devs)]
+    fanned()  # warm-up
+    ms = host_ms(fanned, 5)
+    plain_ms = host_ms(plain, 1)
+    params = search.params_from_numpy(host, devs[0])
+    one = lambda: fan_search.fan_search_devices(host[None], devices=devs[:1],
+                                                chunk_per_shard=span, **geo)
+    direct = lambda: search.offsets_to_numpy(cuda_kernel.cuda_search_chunk_batch(params, **geo))
+    turns = {"plain_path": [], "fan_of_one": []}
+    for name in ("plain_path", "fan_of_one", "fan_of_one", "plain_path") * 2:
+        turns[name].append(host_ms(one if name == "fan_of_one" else direct, 3))
+    if not np.array_equal(one()[0], direct()):
+        raise AssertionError("a fan of one and the plain launch disagree")
+    state["fan_time"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_bound_ms, byte_bound_ms),
+        "bound_by": "operations" if op_bound_ms >= byte_bound_ms else "bytes",
+    }
+    return {"members": len(devs), "rows": host.shape[0], "span_per_member": span,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": state["fan_time"]["bound_ms"],
+            "launch_price_ms": turns,
+            "fan_of_one_over_plain_path": float(np.median(turns["fan_of_one"])
+                                                / np.median(turns["plain_path"]))}
 
 
 def _time_run_kernel(state: dict, eng, params, timed) -> dict:
     """The persistent run kernel alone at max_batch rows x RUN_TIME_STEPS
     engine windows without control (every row dry: the whole span is
-    scanned), its plain version once on the same rows, and one row over 16
-    windows with and without a control channel at the engine's poll cadence
-    (a dead slot: every poll answers zeros), which prices the polls."""
+    scanned), its plain version once on the same rows (their results
+    bit-equal), and one row over 16 windows with and without a control
+    channel at the engine's poll cadence (a dead slot: every poll answers
+    zeros), which prices the polls. Then the strided launch's shape with
+    first hits in strided windows 0 and 1 (_strided_with_hits)."""
     from tpu_dpow_torch.ops import cuda_kernel, runloop
 
     window = eng.chunk
+    plain_out = {}
     run_kernel = lambda: cuda_kernel.cuda_search_run_batch(
         params, None, window=window, max_steps=RUN_TIME_STEPS)
-    run_plain = lambda: runloop.run_loop_core(
+    run_plain = lambda: plain_out.__setitem__("contiguous", runloop.run_loop_core(
         params, None, launch=runloop.plain_launch(window), window=window,
-        max_steps=RUN_TIME_STEPS)
+        max_steps=RUN_TIME_STEPS))
     one = params[:1]
     one_free = lambda: cuda_kernel.cuda_search_run_batch(one, None, window=window, max_steps=16)
     one_polled = lambda: cuda_kernel.cuda_search_run_batch_controlled(
         one, None, 0, window=window, max_steps=16, poll_steps=eng.control_poll_steps)
+    # The same rows and windows, each window's base STRIDE_WINDOWS windows
+    # past the last: the strided mode a fan member runs.
+    stride = STRIDE_WINDOWS * window
+    run_strided = lambda: cuda_kernel.cuda_search_run_batch(
+        params, None, window=window, max_steps=RUN_TIME_STEPS, stride=stride)
+    plain_strided = lambda: plain_out.__setitem__("strided", runloop.run_loop_core(
+        params, None, launch=runloop.plain_launch(window), window=stride,
+        max_steps=RUN_TIME_STEPS))
     run_kernel()  # warm-up
     ms = timed(run_kernel, 5)
     plain_ms = timed(run_plain, 1)
     ms_repeat = timed(run_kernel, 5)
+    run_strided()  # warm-up
+    strided_ms = timed(run_strided, 5)
+    strided_plain_ms = timed(plain_strided, 1)
+    strided_ms_repeat = timed(run_strided, 5)
+    contiguous_after = timed(run_kernel, 5)
+    for mode, launch in (("contiguous", run_kernel), ("strided", run_strided)):
+        got, want = _nonces(*launch()), _nonces(*plain_out[mode])
+        if got != want:
+            raise AssertionError(f"timed {mode} run kernel != plain: {got} vs {want}")
+    with_hits = _strided_with_hits(eng, stride)
+    state["strided_max_abs_err"] = max(state.get("strided_max_abs_err", 0),
+                                       with_hits["max_abs_err"])
     polls_before = cuda_kernel.run_poll_stats["polls"]
     one_free_ms, one_polled_ms = timed(one_free, 3), timed(one_polled, 3)
     polls = (cuda_kernel.run_poll_stats["polls"] - polls_before) // 3
@@ -1121,6 +1866,8 @@ def _time_run_kernel(state: dict, eng, params, timed) -> dict:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_bound_ms, byte_bound_ms),
         "bound_by": "operations" if op_bound_ms >= byte_bound_ms else "bytes",
     }
+    # The strided launch scans the same nonces: the same bound.
+    state["strided_time"] = {**state["run_time"], "ms": strided_ms, "plain_ms": strided_plain_ms}
     return {
         "rows": params.shape[0], "windows": RUN_TIME_STEPS, "window": window,
         "nonces": nonces, "ms": ms, "ms_repeat": ms_repeat, "plain_ms": plain_ms,
@@ -1131,7 +1878,43 @@ def _time_run_kernel(state: dict, eng, params, timed) -> dict:
         "one_row_16_windows_polled_ms": one_polled_ms,
         "polls_per_polled_launch": polls,
         "poll_cost_us": (one_polled_ms - one_free_ms) * 1e3 / max(1, polls),
+        "strided": {"stride": stride, "ms": strided_ms, "ms_repeat": strided_ms_repeat,
+                    "plain_ms": strided_plain_ms, "bound_share": op_bound_ms / strided_ms,
+                    "contiguous_ms_after": contiguous_after, "with_hits": with_hits},
+        "tolerance": "bit-exact against the plain run loop (dry rows and rows with hits)",
     }
+
+
+def _strided_with_hits(eng, stride: int) -> dict:
+    """The timed strided launch's shape (max_batch rows x RUN_TIME_STEPS
+    engine windows, ``stride`` apart, no control) with rows whose first hit
+    is ~1 window in, drawn until some hit in strided window 0 and some in
+    the last: the run kernel, its plain version and the first hits the
+    search kernel finds window by window must all agree."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import search
+
+    geo = dict(sublanes=eng.sublanes, iters=eng.iters, nblocks=eng.nblocks, group=eng.group)
+    rng = np.random.default_rng(SEED + 9)
+    target = (1 << 64) - (1 << 64) // eng.chunk
+    for attempt in range(8):
+        host = np.stack([search.pack_params(rng.bytes(32), target, int(rng.integers(0, 1 << 63)))
+                         for _ in range(eng.max_batch)])
+        want = _strided_first_hits(host, geo, stride, RUN_TIME_STEPS, "cuda")
+        windows = _hit_windows(host, want, stride)
+        if {0, RUN_TIME_STEPS - 1} <= set(windows):
+            break
+    else:
+        raise AssertionError("no seed put first hits in strided windows 0 and 1")
+    pair = _run_pair(search.params_from_numpy(host, "cuda"), window=eng.chunk, geo=geo,
+                     max_steps=RUN_TIME_STEPS, stride=stride)
+    k, p = pair["kernel"]["nonces"], pair["plain"]["nonces"]
+    if k != p or k != want:
+        raise AssertionError(f"strided run kernel {k} != plain {p} or first hits {want}")
+    return {"rows": eng.max_batch, "hit_windows": windows, "dry": k.count(MAX_U64),
+            "attempts": attempt + 1, "max_abs_err": 0, "kernel_s": pair["kernel"]["seconds"],
+            "plain_s": pair["plain"]["seconds"]}
 
 
 def main(argv=None) -> int:
@@ -1166,6 +1949,7 @@ def main(argv=None) -> int:
     print(state["card"]["smi"], flush=True)
     if set(PHASES) <= set(phases):
         t, r = state["time"], state["run_time"]
+        st, ft = state["strided_time"], state["fan_time"]
         emit({"kernels": [{
             "name": "blake2b_search", "route": "cuda",
             "source": "tpu_dpow_torch/ops/csrc/blake2b_search.cu",
@@ -1180,6 +1964,20 @@ def main(argv=None) -> int:
             "launches": state["run_launches"], "max_abs_err": state["run_max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
+        }, {
+            "name": "blake2b_run_strided", "route": "cuda",
+            "source": "tpu_dpow_torch/ops/csrc/blake2b_run.cu",
+            "replaces": "tpu_dpow/parallel/fan_search.py:343",
+            "launches": state["strided_launches"], "max_abs_err": state["strided_max_abs_err"],
+            **{k: st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+        }, {
+            "name": "fan_search", "route": "cuda",
+            "source": "tpu_dpow_torch/parallel/fan_search.py",
+            "replaces": "tpu_dpow/parallel/fan_search.py:98",
+            "launches": state["fan_launches"], "max_abs_err": state["fan_max_abs_err"],
+            **{k: ft[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
         }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,7 +103,7 @@ def test_setup_self_test_and_generate():
 def test_setup_fails_when_the_launch_is_wrong():
     async def go():
         b = cpu_backend()
-        b._launch = lambda p, s, slot=0: (np.array([5], np.uint32), np.array([0], np.uint32))
+        b._launch = lambda p, s, slot=0, devices=None: (np.array([5], np.uint32), np.array([0], np.uint32))
         with pytest.raises(WorkError, match="self-test"):
             await b.setup()
         await b.close()
@@ -208,7 +208,7 @@ def test_weak_hit_after_raise_searches_on():
         launched, raised = [], threading.Event()
         real = b._launch
 
-        def spy(params, steps, slot=0):
+        def spy(params, steps, slot=0, devices=None):
             launched.append(int(params[0, search.DIFF_HI]) << 32 | int(params[0, search.DIFF_LO]))
             raised.wait(10)  # the first launch returns only after the raise
             return real(params, steps, slot)
@@ -268,7 +268,7 @@ def test_host_revalidation_rejects_bad_device_results():
         b = cpu_backend()
         await b.setup()
 
-        def bogus(params, steps, slot=0):  # claims offset 0 solves every row
+        def bogus(params, steps, slot=0, devices=None):  # claims offset 0 solves every row
             n = params.shape[0]
             return params[:, search.BASE_LO].copy(), params[:, search.BASE_HI].copy()
 

@@ -1,14 +1,16 @@
 """Package-level checks of the PyTorch + CUDA port.
 
 * Importing ``tpu_dpow_torch`` and every submodule loads neither ``jax`` nor
-  any module of ``tpu_dpow`` (checked in a fresh interpreter).
+  any module of ``tpu_dpow`` (checked in a fresh interpreter), the device
+  fan, the chaos seam, the fault domains and the logging helper included.
 * The kernel's arithmetic header (``ops/csrc/blake2b_search.cuh``), built for
   the host with ``g++``, gives hashlib's work values.
 * ``chip_smoke.py`` fails, and prints no result, where no card is visible.
 * On a card (marker ``cuda``, skipped here): each kernel equals its plain
   version bit for bit — the persistent run kernel with and without a
-  scripted control channel, its LaunchControl bookkeeping included — and
-  each launch moves its counter by one.
+  scripted control channel, its LaunchControl bookkeeping included, and with
+  strided windows — each launch moves its counter by one, and the fan
+  functions over every visible card equal their plain versions.
 """
 
 import ctypes
@@ -52,7 +54,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.') or m == 'tpu_dpow'\n"
         "             or m.startswith('tpu_dpow.'))\n"
-        "print(len(names), bad)\n"
+        "need = {'tpu_dpow_torch.parallel', 'tpu_dpow_torch.parallel.fan_search',\n"
+        "        'tpu_dpow_torch.chaos', 'tpu_dpow_torch.chaos.device',\n"
+        "        'tpu_dpow_torch.resilience.devfault', 'tpu_dpow_torch.resilience.breaker',\n"
+        "        'tpu_dpow_torch.utils.logging'}\n"
+        "print(len(names), sorted(need - set(names)), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -60,9 +66,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
+    count, missing, bad = out.stdout.strip().split(" ", 2)
     assert int(count) >= 10  # every module of the slice was imported
-    assert bad == "[]"
+    assert missing == "[]" and bad == "[]"
 
 
 def test_cuh_host_build_matches_hashlib(tmp_path):
@@ -119,6 +125,77 @@ def test_queued_launch_sleeps_until_its_start_event():
     waited_ns = cuda_kernel._sleep_until(event)
     assert event.queries == 4
     assert waited_ns >= (20 + 40 + 80) * 1000
+
+
+class _FakeFn:
+    """Stands in for a ctypes function: takes argtypes and restype and
+    returns ``ret``."""
+
+    def __init__(self, ret=0):
+        self.ret = ret
+
+    def __call__(self, *args):
+        return self.ret
+
+
+class _FakeLib:
+    """Stands in for a kernel library loaded from ``path`` (its name)."""
+
+    def __init__(self, path):
+        self.b2_abi_version = _FakeFn(cuda_kernel._ABI_VERSIONS[path])
+        self.b2_run_out_words = _FakeFn(2 + cuda_kernel._OUT_STATS)
+
+    def __getattr__(self, attr):
+        fn = _FakeFn()
+        setattr(self, attr, fn)
+        return fn
+
+
+@pytest.fixture
+def four_fake_cards(monkeypatch):
+    """Four visible cards as far as the port asks, kernel libraries that
+    load without nvcc, and mailboxes that record the card they are made
+    on (the list returned)."""
+    made = []
+
+    class Mailbox:
+        def __init__(self, lib, rows, device):
+            self.rows, self.device = rows, device
+            made.append(device)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(cuda_kernel, "build_libraries", lambda names: {n: n for n in names})
+    monkeypatch.setattr(cuda_kernel.ctypes, "CDLL", _FakeLib)
+    monkeypatch.setattr(cuda_kernel, "_libs", {})
+    monkeypatch.setattr(cuda_kernel, "_lib_paths", {})
+    monkeypatch.setattr(cuda_kernel, "_mailboxes", {})
+    monkeypatch.setattr(cuda_kernel, "_Mailbox", Mailbox)
+    return made
+
+
+@pytest.mark.parametrize("kw,cards", [
+    (dict(device="cuda:2", run_mode="persistent"), [2]),
+    (dict(devices=2, run_mode="persistent"), [0, 1]),
+    (dict(device="cuda:3"), []),  # chunked: no controlled launch, no mailbox
+])
+def test_mailboxes_are_pooled_only_on_the_engines_cards(four_fake_cards, kw, cards):
+    """Loading the kernels makes no mailbox; an engine's setup pools them on
+    its own cards only (a CUDA context on no other card), and a second
+    setup tops the pools up without adding more. A launch on a card with
+    no pool allocates its mailbox there."""
+    from tpu_dpow_torch.backend.torch_backend import TorchWorkBackend
+
+    cuda_kernel.load_libraries()
+    assert four_fake_cards == []
+    engine = TorchWorkBackend(**kw)
+    engine._load_kernels()
+    engine._load_kernels()
+    assert sorted(four_fake_cards) == [c for c in cards
+                                       for _ in range(cuda_kernel._MAILBOXES_PER_CARD)]
+    box = cuda_kernel._take_mailbox(cuda_kernel.load_run_library(), 16, 3)
+    assert box.device == 3 and four_fake_cards[-1] == 3
 
 
 def seeded_rows() -> np.ndarray:
@@ -182,9 +259,10 @@ class ScriptedControl(control.LaunchControl):
         return super().poll(dev, k, done)
 
 
-def run_both_sides(params, window, poll_steps):
-    """The run kernel and the plain run loop on the same rows → per side
-    (nonces, bookkeeping or None)."""
+def run_both_sides(params, window, poll_steps, stride=None):
+    """The run kernel and the plain run loop on the same rows, windows
+    ``stride`` apart (None: contiguous) → per side (nonces, bookkeeping or
+    None)."""
     out = []
     for on_card in (True, False):
         c = slot = None
@@ -195,16 +273,20 @@ def run_both_sides(params, window, poll_steps):
         try:
             if on_card:
                 before = cuda_kernel.run_launches
+                strided = cuda_kernel.run_strided_launches
                 if slot is None:
-                    lo, hi = runloop.search_run_batch(params, None, max_steps=11, sublanes=8, iters=16)
+                    lo, hi = runloop.search_run_batch(params, None, max_steps=11, sublanes=8,
+                                                      iters=16, stride=stride)
                 else:
                     lo, hi = runloop.search_run_batch_controlled(
                         params, None, slot, max_steps=11, poll_steps=poll_steps,
-                        sublanes=8, iters=16)
+                        sublanes=8, iters=16, stride=stride)
                 assert cuda_kernel.run_launches == before + 1
+                assert cuda_kernel.run_strided_launches == strided + (
+                    stride is not None and stride != window)
             else:
                 lo, hi = runloop.run_loop_core(
-                    params, None, launch=runloop.plain_launch(window), window=window,
+                    params, None, launch=runloop.plain_launch(window), window=stride or window,
                     max_steps=11, poll_steps=poll_steps or 0,
                     control_poll=None if slot is None else runloop.make_control_poll(slot))
             lo, hi = search.offsets_to_numpy(lo), search.offsets_to_numpy(hi)
@@ -229,3 +311,42 @@ def test_run_kernel_matches_plain_on_the_card(poll_steps):
     assert card == plain
     with pytest.raises(TypeError):
         runloop.search_run_batch(params.to(torch.int64), None, max_steps=1, sublanes=8, iters=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poll_steps,stride_windows", [(None, 4), (1, 4), (2, 3), (None, 1)])
+def test_strided_run_kernel_matches_plain_on_the_card(poll_steps, stride_windows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the persistent kernel has no CPU mode")
+    params = search.params_from_numpy(seeded_rows(), "cuda")
+    window = cuda_kernel.window(8, 16)
+    card, plain = run_both_sides(params, window, poll_steps, stride=stride_windows * window)
+    assert card == plain
+
+
+@pytest.mark.cuda
+def test_fan_functions_match_plain_on_the_cards():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fan's kernels have no CPU mode")
+    from tpu_dpow_torch.parallel import fan_search
+
+    devs = fan_search.fan_devices(-1, "cuda")
+    n, window = len(devs), cuda_kernel.window(8, 16)
+    rows = seeded_rows()
+    before = cuda_kernel.launches
+    got = fan_search.fan_search_chunk_batch(rows, devices=devs, chunk_per_shard=window,
+                                            sublanes=8, iters=16)
+    assert cuda_kernel.launches == before + n
+    want = search.offsets_to_numpy(search.search_chunk_batch(
+        search.params_from_numpy(rows, "cuda"), chunk_size=n * window))
+    assert np.array_equal(got, want)
+    lo, hi = fan_search.fan_search_run(rows, devices=devs, chunk_per_shard=window,
+                                       max_steps=9, sublanes=8, iters=16)
+    stacked = fan_search.stagger(rows, n, window)
+    plain = [runloop.run_loop_core(search.params_from_numpy(stacked[i], "cuda"), None,
+                                   launch=runloop.plain_launch(window), window=n * window,
+                                   max_steps=9) for i in range(n)]
+    want_lo, want_hi = fan_search.elect(
+        rows, np.stack([search.offsets_to_numpy(p[0]) for p in plain]),
+        np.stack([search.offsets_to_numpy(p[1]) for p in plain]))
+    assert np.array_equal(lo, want_lo) and np.array_equal(hi, want_hi)

@@ -139,7 +139,7 @@ def test_successor_launches_keep_their_full_span():
     async def go():
         b = make_persistent(run_steps=4)
         loop = asyncio.get_running_loop()
-        b._submit_launch = lambda params, steps, slot=0: loop.create_future()
+        b._submit_launch = lambda params, steps, slot=0, **kw: loop.create_future()
         h = random_hash()
         params = search.pack_params(bytes.fromhex(h), UNREACH, 0)
         b._jobs[h] = _Job(h, UNREACH, params, loop.create_future(), 0)
@@ -371,3 +371,44 @@ def test_both_engines_return_the_same_work_for_a_pinned_request():
     work_j = run(solve(jax_b, JaxWorkRequest(h, EASY, nonce_range=(base, 0))), timeout=120)
     assert work_t == work_j
     nc.validate_work(h, work_t, EASY)
+
+
+def test_close_lets_a_queued_launch_start_and_take_its_cancel():
+    """close() with a pipelined successor whose thread has not started: the
+    successor is not cancelled unstarted (its rows' cancel would then never
+    be delivered, as the reference never does); it starts, takes the
+    cancel at its first poll and returns, and its slot is released."""
+    import concurrent.futures
+    import threading
+
+    async def go():
+        b = make_persistent()
+        await b.setup()
+        b._executor = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        gate = threading.Event()
+        real = b._launch
+
+        def gated(*args):
+            gate.wait(10)
+            return real(*args)
+
+        b._launch = gated
+        h = random_hash()
+        t = asyncio.ensure_future(b.generate(WorkRequest(h, UNREACH)))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + 10.0
+        while len(b._live_controls(b._jobs[h]) if h in b._jobs else ()) < 2:
+            assert loop.time() < deadline, "the pipeline never filled"
+            await asyncio.sleep(0.005)
+        recs = [rec for rec, _row in b._live_controls(b._jobs[h])]
+        closer = asyncio.ensure_future(b.close())
+        await asyncio.sleep(0.05)
+        gate.set()
+        await asyncio.wait_for(closer, 20)
+        with pytest.raises(WorkCancelled):
+            await t
+        for rec in recs:
+            assert rec.thread_done.is_set()
+            assert "cancel" in {a for _r, a, _l, _t in rec.control.delivered}
+
+    run(go())

@@ -322,3 +322,96 @@ def test_poll_raising_is_the_callers_error():
             )
     finally:
         tctl.release(slot)
+
+
+# -- strided windows (the device fan's run loop) --------------------------------
+
+
+def strided_both(rows, *, stride, max_steps, poll_steps=None, script=None):
+    """The port's loop with ``stride`` against tpu_dpow's run_loop_core with
+    ``window=stride`` around a one-window scan — without control under jit,
+    with control as a one-device fan_search_run_controlled. Asserts
+    bit-equal nonces and identical bookkeeping → (port nonces, control)."""
+    import jax
+
+    from tpu_dpow.ops import search as jsearch
+    from tpu_dpow.parallel import fan_search as jfan
+
+    rows = np.asarray(rows, dtype=np.uint32)
+    params = search.params_from_numpy(rows)
+    if poll_steps is None:
+        ref = jax.jit(lambda p: jrl.run_loop_core(
+            p, None, launch=lambda q: jsearch.search_chunk_batch(q, chunk_size=W),
+            window=stride, max_steps=max_steps))
+        want = nonces(*ref(jnp.asarray(rows)))
+        got = nonces(*map(search.offsets_to_numpy, trl.search_run_batch(
+            params, None, max_steps=max_steps, stride=stride, **GEO)))
+        assert got == want
+        return got, None
+    cj = scripted(jctl.LaunchControl, script)(rows.shape[0], clock=TickClock())
+    ct = scripted(tctl.LaunchControl, script)(rows.shape[0], clock=TickClock())
+    slot = jctl.register(cj)
+    try:
+        lo, hi = jfan.fan_search_run_controlled(
+            rows[None], slot, devices=jax.devices()[:1], chunk_per_shard=W,
+            max_steps=max_steps, poll_steps=poll_steps, stride=stride)
+        want = nonces(np.asarray(lo)[0], np.asarray(hi)[0])
+    finally:
+        jctl.release(slot)
+    slot = tctl.register(ct)
+    try:
+        got = nonces(*map(search.offsets_to_numpy, trl.search_run_batch_controlled(
+            params, None, slot, max_steps=max_steps, poll_steps=poll_steps, stride=stride,
+            **GEO)))
+    finally:
+        tctl.release(slot)
+    assert got == want
+    assert bookkeeping(ct, rows.shape[0]) == bookkeeping(cj, rows.shape[0])
+    return got, ct
+
+
+@pytest.mark.parametrize("stride_windows", [1, 4, 7])
+def test_strided_windows_match_the_reference_loop(stride_windows):
+    """Window k scans [base + k*stride, + window): the rows' first hits are
+    the reference's, carries included; stride == window is the contiguous
+    scan."""
+    rows = mixed_rows(40 + stride_windows)
+    got, _ = strided_both(rows, stride=stride_windows * W, max_steps=9)
+    assert got[0] == 0 and got[5] == MAX_U64
+
+
+def test_strided_hit_in_a_later_window_is_the_lowest_k():
+    """A hash whose best value over the first three strided windows lies in
+    the third: that nonce is the row's first hit, though nonces between the
+    windows (never scanned) may be better."""
+    stride = 3 * W
+    rng = np.random.default_rng(77)
+    while True:
+        h = rng.bytes(32)
+        scanned = [k * stride + j for k in range(3) for j in range(W)]
+        best = max(scanned, key=lambda j: val(h, j))
+        if best >= 2 * stride:
+            break
+    got, _ = strided_both(np.stack([search.pack_params(h, val(h, best), 0)]), stride=stride,
+                          max_steps=6)
+    assert got == [best]
+
+
+@pytest.mark.parametrize("poll_steps", [1, 2])
+def test_strided_controlled_loop_with_raise_and_cancel(poll_steps):
+    """The chip's strided check on the CPU: a raise at k = 0 and a cancel at
+    k = 2, at stride = 4 windows."""
+    rows = mixed_rows(50)
+    rows[5] = search.pack_params(bytes(range(7, 39)), UNREACH, (9 << 32) - 50)
+    got, c = strided_both(rows, stride=4 * W, max_steps=8, poll_steps=poll_steps, script=chain(
+        once("raise", 0, lambda c: c.raise_difficulty(4, 0xFFFF800000000000, epoch=3)),
+        once("cancel", 2, lambda c: c.cancel(5)),
+    ))
+    assert got[5] == MAX_U64 and c.done_at_k[(5, 0)] <= 2 + poll_steps
+    assert c.effective_difficulty(4) == 0xFFFF800000000000
+
+
+def test_stride_below_the_window_is_refused():
+    with pytest.raises(ValueError, match="stride"):
+        trl.search_run_batch(search.params_from_numpy(mixed_rows(1)), None, max_steps=1,
+                             stride=W - 1, **GEO)

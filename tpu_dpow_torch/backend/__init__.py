@@ -5,8 +5,9 @@ seam is an HTTP POST of ``{"action": "work_generate", hash, difficulty}`` to
 an external ``nano-work-server``, with ``work_cancel`` aborting an in-flight
 hash; here it is an async protocol. This package has one engine:
 :class:`~tpu_dpow_torch.backend.torch_backend.TorchWorkBackend`, the batched
-nonce search on one GPU through the hand-written CUDA kernel (or on the CPU
-through its plain PyTorch version).
+nonce search through the hand-written CUDA kernels on one GPU or fanned
+over several (``devices=``), or on the CPU through their plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -24,6 +25,13 @@ class WorkError(Exception):
 
 class WorkCancelled(WorkError):
     """The in-flight request was cancelled (reference work_cancel analog)."""
+
+
+class DevicesExhausted(WorkError):
+    """Every device in the engine's fault domain is quarantined: the
+    engine KNOWS it cannot serve (resilience/devfault.py). Distinct from a
+    plain WorkError so a caller can fail over at once instead of waiting
+    out a hang budget, and count the cause separately from a hang."""
 
 
 async def await_shared_job(job, abort: Callable[[], None]) -> str:
@@ -84,7 +92,9 @@ class WorkBackend(abc.ABC):
 
 
 def get_backend(name: str, **kwargs) -> WorkBackend:
-    """Construct a backend by name: 'torch'."""
+    """Construct a backend by name: 'torch' (keyword arguments go to
+    :class:`~tpu_dpow_torch.backend.torch_backend.TorchWorkBackend`, e.g.
+    ``devices=-1, device_shard="interleave"`` for the device fan)."""
     if name == "torch":
         from .torch_backend import TorchWorkBackend
 

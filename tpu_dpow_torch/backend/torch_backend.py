@@ -1,7 +1,8 @@
 """In-process PyTorch/CUDA work engine: batched, cancellable nonce search.
 
-Counterpart of the single-device path of ``tpu_dpow/backend/jax_backend.py``
-in both of its run modes, built on the scanners in ops/:
+Counterpart of ``tpu_dpow/backend/jax_backend.py`` in both of its run
+modes, on one device or fanned over several, built on the scanners in ops/
+and the fan in parallel/:
 
   * Every request gets a decorrelating random 64-bit start base (or the
     start of its ``nonce_range``), then advances deterministically launch by
@@ -28,12 +29,27 @@ in both of its run modes, built on the scanners in ops/:
     returns on win, cancel or span end. Stale launches are epoch-fenced
     (``LaunchControl.kill``); results are read against what the device
     actually ran (``effective_*``).
+  * ``devices=N`` (the device FAN, parallel/fan_search.py): each job's
+    nonce range is sub-partitioned over N devices (``device_shard``:
+    'split' macro-ranges, or 'interleave' windows dealt round-robin); every
+    launch runs one member launch per device, and the host elects the
+    winner and attributes it to the device whose sub-range produced it
+    (per-device scan clocks, EMA, the ``dpow_backend_device_*`` families).
+  * Device fault domains (resilience/devfault.py): a watchdog on the
+    injectable clock reads each device's progress from the control
+    channel's poll bookkeeping; a device that misses its deadline is
+    suspected, its launches are ejected and its uncovered range evacuated
+    onto the healthy devices, and it is quarantined until a single probe
+    launch re-admits it. At zero healthy devices the engine raises
+    ``DevicesExhausted``. The watchdog runs for every persistent engine
+    (fan or not) and for chunked launches when ``device_suspect_after`` is
+    set.
 
 On a CUDA device every launch goes through a hand-written kernel
 (ops/cuda_kernel.py: the chunk search kernel, or the persistent run kernel);
-with ``device="cpu"`` the same engine runs their plain PyTorch versions.
-Every found nonce is re-validated on the host against hashlib before it is
-returned.
+with ``device="cpu"`` the same engine runs their plain PyTorch versions,
+and a fan of N runs N logical CPU members. Every found nonce is
+re-validated on the host against hashlib before it is returned.
 """
 
 from __future__ import annotations
@@ -44,8 +60,9 @@ import contextlib
 import math
 import secrets
 import threading
+import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
@@ -55,11 +72,21 @@ from .. import obs
 from ..models import WorkRequest
 from ..ops import control as ctl
 from ..ops import cuda_kernel, runloop, search
+from ..parallel import fan_search
 from ..resilience.clock import Clock, SystemClock
+from ..resilience.devfault import (
+    DEADLINE_SLACK,
+    HEALTHY,
+    DeviceFaultDomains,
+    launch_deadline,
+)
 from ..utils import nanocrypto as nc
-from . import WorkBackend, WorkCancelled, WorkError, await_shared_job
+from ..utils.logging import get_logger
+from . import DevicesExhausted, WorkBackend, WorkCancelled, WorkError, await_shared_job
 
 _MASK64 = (1 << 64) - 1
+
+logger = get_logger("tpu_dpow_torch.backend")
 
 # Coverage-aware dispatch (see _dispatch_next): a job is worth another span
 # while P(no in-flight span solves it) is at least this. Below it the job is
@@ -84,6 +111,17 @@ _RUN_STEPS = {"cuda": 16, "cpu": 1}
 # 1-2 % while a cancel lands within ~7 ms. The CPU polls every window, as the JAX
 # engine's CPU default does (test windows are tiny, local polls cheap).
 _POLL_STEPS = {"cuda": 2, "cpu": 1}
+# Automatic launch_timeout: a launch on the card that has not returned in
+# this many seconds fails the engine with a WorkError instead of hanging it
+# (the JAX engine's TPU rule); none on the CPU.
+_LAUNCH_TIMEOUT = {"cuda": 300.0, "cpu": None}
+
+
+def _consume_abandoned(fut) -> None:
+    """Done-callback tail for an abandoned launch future: consume its
+    outcome so an exception never logs as never-retrieved."""
+    if not fut.cancelled():
+        fut.exception()
 
 
 @dataclass
@@ -95,11 +133,20 @@ class _Job:
     base: int
     cancelled: bool = False
     waiters: int = 0  # refcount: last cancelled waiter drops the job
-    # Bumped on every re-aim (cover_range): a launch dispatched against the
-    # old region must not rewind the frontier back out of the new one.
+    # Bumped on every re-aim (cover_range, fan re-partition, evacuation): a
+    # launch dispatched against the old region must not rewind the frontier
+    # back out of the new one, nor feed the new partition's counters.
     epoch: int = 0
     # P(no launch currently in flight solves this job); 1.0 = uncovered.
     inflight_miss: float = 1.0
+    # Device fan: per-device shard state, by PHYSICAL device index.
+    dev_bases: "Optional[list]" = None  # split policy: per-device next base
+    dev_scanned: "Optional[list]" = None  # nonces scanned per device (this job)
+    dev_t0: "Optional[list]" = None  # per-device scan-clock first-dispatch stamps
+    # The partition's recorded range (fan mode): evacuation computes a dead
+    # device's uncovered remainder against this end (length 0 = full span).
+    part_start: int = 0
+    part_len: int = 0
 
     def set_base(self, base: int) -> None:
         self.base = base & _MASK64
@@ -124,18 +171,40 @@ class _Launch:
     launched_difficulty: list  # per-job target snapshot at dispatch
     bases: list  # per-job scan base at dispatch (pre-speculation)
     epochs: list  # per-job re-aim epoch at dispatch
-    span: int  # nonces scanned per row this launch
+    span: int  # nonces scanned per row this launch (all devices summed)
     miss_factors: list  # per-job P(this span misses), undone when applied
-    steps: int = 1  # windows this launch may scan per row
+    steps: int = 1  # windows this launch may scan per row (per device)
+    batch: int = 1  # padded batch rows
     # Persistent mode: the launch's live control block and its slot id in
     # ops/control.py's table. None on chunked launches — they cannot be
     # steered mid-flight.
     control: "Optional[ctl.LaunchControl]" = None
     slot: int = 0
+    # Fan mode: per-job per-slice base snapshot [len(jobs)][n_slices], and
+    # launch slice index -> PHYSICAL device index (a launch dispatched at
+    # degraded width runs on a subset of the fan).
+    dev_bases: "Optional[list]" = None
+    fan_map: "Optional[list]" = None
+    # Stage stamps, perf_counter and injectable clock: t_thread, t_done,
+    # t_thread_clock, t_done_clock (window-time EMA, per-device rates).
+    timing: dict = field(default_factory=dict)
+    # Dispatch stamp on the injectable clock: the watchdog's deadline anchor
+    # for a launch that has not polled yet.
+    t_clock: float = 0.0
+    # Set by the launch THREAD when it actually returns: ``fut`` reads done
+    # once its waiter is cancelled while the thread may still be wedged.
+    thread_done: "Optional[threading.Event]" = None
+    # Readback-await task (launch_timeout bound), made when the launch
+    # reaches the head of the FIFO.
+    waiter: "Optional[asyncio.Task]" = None
+    # Set when the watchdog ejects the launch (a suspect device pins it):
+    # its results are discarded and its control rows kill-fenced.
+    abandoned: bool = False
 
 
 class TorchWorkBackend(WorkBackend):
-    """Batched chunked nonce search on one GPU (or, if asked, the CPU)."""
+    """Batched nonce search on one GPU, fanned over several (``devices=``),
+    or, if asked, on the CPU."""
 
     def __init__(
         self,
@@ -151,7 +220,13 @@ class TorchWorkBackend(WorkBackend):
         run_mode: str = "chunked",  # 'chunked' | 'persistent' (mid-launch control)
         control_poll_steps: int = 0,  # persistent: windows between polls (0 = auto)
         persistent_steps: Optional[int] = None,  # persistent: windows per launch
-        clock: Optional[Clock] = None,  # control poll / delivery stamps
+        clock: Optional[Clock] = None,  # control stamps, scan clocks, watchdog
+        devices: int = 0,  # fan: 0 = one device, -1 = every visible, N = first N
+        device_shard: str = "split",  # fan partition policy: 'split' | 'interleave'
+        launch_timeout: Optional[float] = None,  # s; None = auto (300 on the card)
+        device_suspect_after: float = 0.0,  # s without device progress (0 = auto)
+        device_probe_interval: float = 30.0,  # s between re-admission probes
+        close_join_timeout: float = 5.0,  # s close() waits for launch threads
     ):
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda":
@@ -164,6 +239,21 @@ class TorchWorkBackend(WorkBackend):
                 dev = torch.device("cuda", torch.cuda.current_device())
         elif dev.type != "cpu":
             raise WorkError(f"device must be cuda or cpu, not {dev}")
+        if device_shard not in ("split", "interleave"):
+            raise WorkError(
+                f"device_shard must be 'split' or 'interleave', not {device_shard!r}"
+            )
+        self.device_shard = device_shard
+        # The fan (devices != 0): -1 takes every visible device of the
+        # type, N the first N, 1 included (the A/B that prices the fan's
+        # machinery against the plain path). More than are visible raises.
+        self.fan: "Optional[list]" = None
+        if devices:
+            try:
+                self.fan = fan_search.fan_devices(devices, dev.type)
+            except ValueError as e:
+                raise WorkError(str(e)) from e
+            dev = self.fan[0]
         self.device = dev
         geometry = _GEOMETRY[dev.type]
         self.sublanes = sublanes or geometry[0]
@@ -172,11 +262,19 @@ class TorchWorkBackend(WorkBackend):
         self.group = group or geometry[3]
         try:
             # Fail at construction with the kernel's own geometry checks.
-            self.chunk = cuda_kernel.window(
+            self.chunk_per_shard = cuda_kernel.window(
                 self.sublanes, self.iters, self.nblocks, self.group
             )
         except ValueError as e:
             raise WorkError(str(e)) from e
+        # Global per-step window: the fan multiplies the per-device window
+        # by its width; one logical frontier advances by the global chunk.
+        self.chunk = self.chunk_per_shard * (len(self.fan) if self.fan else 1)
+        if self.chunk >= 1 << 31:
+            raise WorkError(
+                f"per-dispatch window {self.chunk} nonces (sublanes*128*iters"
+                f"*nblocks*devices) must stay below 2^31"
+            )
         # One launch may widen to run_steps consecutive windows; the cap
         # bounds cancel latency (a launch cannot be interrupted) and keeps
         # the span below the kernel's 2^31-offset limit.
@@ -213,14 +311,20 @@ class TorchWorkBackend(WorkBackend):
         # latency with width; capping them bounds how long fresh arrivals
         # and cancels wait behind someone else's scan.
         self.shared_steps_cap = max(1, self.run_steps // 4)
+        # A launch that never returns (a wedged card) fails the engine with a
+        # WorkError after launch_timeout instead of hanging its waiters.
+        if launch_timeout is None:
+            launch_timeout = _LAUNCH_TIMEOUT[dev.type]
+        self.launch_timeout = launch_timeout
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
-        self._tls = threading.local()  # per launch thread: its CUDA stream
-        # Persistent launches all share ONE stream: each is a cooperative
-        # grid holding every SM with grid-wide barriers, and two of them on
-        # two streams could each hold part of the card and wait forever. A
-        # pipelined successor queues behind the running launch instead.
-        self._persistent_stream: "Optional[torch.cuda.Stream]" = None
-        self._lock = threading.Lock()  # guards the shared stream's creation
+        self._tls = threading.local()  # per launch thread: its CUDA streams
+        # Persistent launches share ONE stream PER DEVICE: each is a
+        # cooperative grid holding every SM of its card with grid-wide
+        # barriers, and two of them on two streams of one card could each
+        # hold part of it and wait forever. A pipelined successor queues
+        # behind the running launch instead.
+        self._persistent_streams: Dict[int, "torch.cuda.Stream"] = {}
+        self._lock = threading.Lock()  # guards the shared streams' creation
         self._jobs: Dict[str, _Job] = {}
         self._inflight: deque = deque()
         self._last_rung = -1  # round-robin cursor over difficulty rungs
@@ -247,6 +351,69 @@ class TorchWorkBackend(WorkBackend):
             "dpow_backend_persistent_effect_seconds",
             "Control command issue -> device delivery latency on the "
             "engine's injectable clock")
+        # Per-device families (fan mode), named as the JAX engine's. Label
+        # cardinality is the fan width.
+        self._m_dev_rate = reg.gauge(
+            "dpow_backend_device_hash_rate_hs",
+            "Per-device scan rate of the most recently applied fanned "
+            "launch (H/s)", ("device",))
+        self._m_dev_launches = reg.counter(
+            "dpow_backend_device_launches_total",
+            "Fanned launches applied, per device", ("device",))
+        self._m_dev_hashes = reg.counter(
+            "dpow_backend_device_hashes_total",
+            "Nonces scanned per device across fanned launches", ("device",))
+        self._m_dev_busy = reg.gauge(
+            "dpow_backend_device_busy_fraction",
+            "Fraction of wall time the device spent executing fanned "
+            "launches (occupancy)", ("device",))
+        self._m_dev_wins = reg.counter(
+            "dpow_backend_device_wins_total",
+            "Wins attributed to the device whose sub-range produced the "
+            "nonce", ("device",))
+        self._m_dev_ema = reg.gauge(
+            "dpow_backend_device_ema_hs",
+            "EMA of win-attributed scan rate on the device's own scan "
+            "clock (H/s)", ("device",))
+        self._m_threads_leaked = reg.counter(
+            "dpow_backend_launch_threads_leaked_total",
+            "Launch threads abandoned still running (watchdog ejection, "
+            "launch timeout, or wedged past the close() join bound), "
+            "detached and counted instead of awaited forever")
+        # Fan bookkeeping: per-device busy seconds + EMA folds, the wall
+        # anchor for busy-fraction, and the last win's attribution record.
+        n_fan = len(self.fan) if self.fan else 0
+        self._fan_wall_t0 = self._clock.time()
+        self._dev_busy = [0.0] * n_fan
+        self.device_ema = [0.0] * n_fan
+        self.fan_ema_alpha = 0.3
+        self.last_win: Optional[dict] = None
+        # -- device fault domains (resilience/devfault.py) ---------------
+        # The watchdog runs wherever the progress signal exists (persistent
+        # launches, any width); chunked launches have no mid-launch
+        # bookkeeping, so their whole-launch backstop only arms when
+        # device_suspect_after is set explicitly.
+        if device_suspect_after < 0:
+            raise WorkError("device_suspect_after must be >= 0 (0 = auto)")
+        self._watchdog_enabled = run_mode == "persistent" or device_suspect_after > 0
+        self.device_suspect_after = device_suspect_after or 30.0
+        self.device_probe_interval = device_probe_interval
+        self.close_join_timeout = close_join_timeout
+        self._dfd = DeviceFaultDomains(
+            n_fan or 1,
+            suspect_after=self.device_suspect_after,
+            probe_interval=device_probe_interval,
+            clock=self._clock,
+        )
+        self._watchdog_task: Optional[asyncio.Task] = None
+        self._probe_tasks: Dict[int, asyncio.Task] = {}
+        self._devices_exhausted = False
+        # EMA of wall seconds per launch window (applied launches): the
+        # poll-cadence → seconds conversion of the progress deadlines.
+        self._window_seconds = 0.0
+        # EMA of dispatch → first-poll latency: a launch that has not polled
+        # yet (queued behind another, or building) gets this much grace.
+        self._first_poll_seconds = 0.0
 
     # -- WorkBackend interface -------------------------------------------
 
@@ -254,20 +421,39 @@ class TorchWorkBackend(WorkBackend):
         self._closed = False  # setup() after close() reopens the engine
         if self.device.type == "cuda":
             try:
-                await asyncio.to_thread(cuda_kernel.load_libraries)
+                await asyncio.to_thread(self._load_kernels)
             except RuntimeError as e:
-                raise WorkError(f"CUDA kernel build failed: {e}") from e
-        # Self-test: the engine must find a planted easy solution.
+                raise WorkError(f"CUDA kernel setup failed: {e}") from e
+        # Self-test: the engine must find a planted easy solution. Fan
+        # launches return per-device arrays; flat[0] is device 0 / row 0,
+        # and device 0's sub-range starts at the probe base.
         probe = search.pack_params(bytes(32), 1, base=0)
-        lo, hi = await self._submit_launch(np.stack([probe]), 1)
-        if int(lo[0]) != 0 or int(hi[0]) != 0:
+        lo, hi = await self._await_launch(
+            self._submit_launch(np.stack([probe]), 1), "setup self-test"
+        )
+        if int(lo.flat[0]) != 0 or int(hi.flat[0]) != 0:
             raise WorkError(
-                f"backend self-test failed (nonce {int(hi[0]):08x}{int(lo[0]):08x})"
+                f"backend self-test failed "
+                f"(nonce {int(hi.flat[0]):08x}{int(lo.flat[0]):08x})"
             )
+
+    def _load_kernels(self) -> None:
+        """Build and load the kernel libraries; a persistent engine also
+        pools its controlled launches' mailboxes, on its own cards only."""
+        cuda_kernel.load_libraries()
+        if self.run_mode == "persistent":
+            cuda_kernel.prepare_mailboxes(self.fan or [self.device])
 
     async def generate(self, request: WorkRequest) -> str:
         if self._closed:
             raise WorkError("backend closed")
+        if self._devices_exhausted:
+            # The fault domains already declared every device quarantined:
+            # fail fast instead of queueing work behind re-admission probes.
+            raise DevicesExhausted(
+                f"all {self._dfd.n} device(s) quarantined; awaiting a "
+                "successful re-admission probe"
+            )
         key = request.block_hash
         existing = self._jobs.get(key)
         if existing is not None and not existing.cancelled and not existing.future.done():
@@ -288,10 +474,13 @@ class TorchWorkBackend(WorkBackend):
         # hint: the scan runs on past its end). Without one, a random base
         # decorrelates this engine from every other searcher.
         if request.nonce_range is not None:
-            start = request.nonce_range[0]
+            start, length = request.nonce_range
         else:
-            start = secrets.randbits(64)
-        job.set_base(start)
+            start, length = secrets.randbits(64), 0
+        if self.fan is not None:
+            self._fan_partition(job, start, length)
+        else:
+            job.set_base(start)
         self._jobs[key] = job
         self._ensure_engine()
         self._wakeup.set()
@@ -319,7 +508,7 @@ class TorchWorkBackend(WorkBackend):
         """Retarget a running job in place; the per-launch difficulty
         snapshot keeps an in-flight launch's weaker hit searching on past it
         at the new target. Persistent launches are retargeted MID-FLIGHT
-        through the control channel at their next poll."""
+        through the control channel at their next poll, on every device."""
         job = self._jobs.get(nc.validate_block_hash(block_hash))
         if job is None or job.cancelled or job.future.done():
             return False
@@ -375,38 +564,54 @@ class TorchWorkBackend(WorkBackend):
 
     def _control_rebase_job(self, job: _Job) -> tuple:
         """Re-aim the NEWEST in-flight persistent launch at the job's new
-        base (cover_range already moved the job and bumped its epoch); the
-        job's rows in OLDER launches are stale under the new epoch, so they
-        are KILLED — stopped at their next poll, their control word dead to
-        any later write. Returns (covered, span) of the rebased launch."""
+        partition (the caller already moved the job and bumped its epoch);
+        the job's rows in OLDER launches are stale under the new epoch, so
+        they are KILLED — stopped at their next poll, their control word
+        dead to any later write. Returns (covered, span) of the rebased
+        launch."""
         covered, span = False, 0
         for rec, row in reversed(self._live_controls(job)):
-            if not covered and rec.control.rebase(row, [job.base], epoch=job.epoch):
-                covered, span = True, rec.span
-                continue
+            if not covered:
+                if self.fan is not None:
+                    bases = self._rebase_bases_for(
+                        rec, job, self.chunk_per_shard * rec.steps
+                    )
+                else:
+                    bases = [job.base]
+                if rec.control.rebase(row, bases, epoch=job.epoch):
+                    covered, span = True, rec.span
+                    continue
             rec.control.kill(row)
         return covered, span
 
     async def cover_range(self, block_hash: str, nonce_range: tuple) -> bool:
-        """Jump a running job's scan to ``nonce_range``'s start.
+        """Jump a running job's scan to ``nonce_range``.
 
-        The next pack dispatches from the new base; chunked launches already
-        in flight finish their old span and apply normally (a hit there is
+        The next pack dispatches from the new base (every device shard of a
+        fan re-partitions into the range); chunked launches already in
+        flight finish their old span and apply normally (a hit there is
         still a valid nonce). A running persistent launch is re-aimed
         mid-flight instead. Coverage accounting resets.
         """
         job = self._jobs.get(nc.validate_block_hash(block_hash))
         if job is None or job.cancelled or job.future.done():
             return False
-        self._re_cover(job, nonce_range[0])
+        self._re_cover(job, nonce_range[0], nonce_range[1])
         return True
 
-    def _re_cover(self, job: _Job, start: int) -> None:
-        """Re-aim a running job at ``start``, epoch-fenced: a launch already
-        on the wire was aimed at the OLD region, and its weak hit (raised-
-        target race) must not rewind the frontier out of the new one."""
-        job.set_base(start)
-        job.epoch += 1
+    def _re_cover(self, job: _Job, start: int, length: int) -> None:
+        """Re-aim a running job at ``[start, start+length)``, epoch-fenced —
+        the shared core of cover_range and the watchdog's evacuation: a
+        launch already on the wire was aimed at the OLD region, and its
+        weak hit (raised-target race) must not rewind the frontier out of
+        the new one."""
+        if self.fan is not None:
+            # EVERY active device shard re-partitions into the range (the
+            # epoch bump inside _fan_partition fences old launches).
+            self._fan_partition(job, start, length)
+        else:
+            job.set_base(start)
+            job.epoch += 1
         job.inflight_miss = 1.0
         covered, span = self._control_rebase_job(job)
         if covered:
@@ -415,10 +620,26 @@ class TorchWorkBackend(WorkBackend):
             # miss to ~1.0, so any tail it did not reach re-dispatches from
             # the new frontier — bounded overlap, never a gap.
             job.inflight_miss = self._miss_factor(job.difficulty, span)
+            if self.fan is not None:
+                # The re-aimed launch starts the new partition's scan
+                # clocks: its win may land before any later dispatch would
+                # stamp them (none at all at pipeline 1; else a successor's,
+                # just before the win, which inflates the EMA sample).
+                job.dev_t0 = [self._clock.time()] * len(self.fan)
         self._wakeup.set()
 
     async def close(self) -> None:
         self._closed = True
+        # Detach-then-await: a concurrent close() finds the slots empty.
+        watchdog_task, self._watchdog_task = self._watchdog_task, None
+        if watchdog_task is not None:
+            watchdog_task.cancel()
+            await asyncio.gather(watchdog_task, return_exceptions=True)
+        probe_tasks, self._probe_tasks = list(self._probe_tasks.values()), {}
+        for t in probe_tasks:
+            t.cancel()
+        if probe_tasks:
+            await asyncio.gather(*probe_tasks, return_exceptions=True)
         for job in list(self._jobs.values()):
             if not job.future.done():
                 job.future.set_exception(WorkCancelled("backend closed"))
@@ -430,7 +651,6 @@ class TorchWorkBackend(WorkBackend):
                 for i in range(len(rec.jobs)):
                     rec.control.cancel(i)
         self._wakeup.set()
-        # Detach-then-await: a concurrent close() finds the slot empty.
         engine_task, self._engine_task = self._engine_task, None
         if engine_task is not None:
             try:
@@ -438,11 +658,350 @@ class TorchWorkBackend(WorkBackend):
             except Exception:
                 # The engine already failed its waiters before dying.
                 pass
+        # Bounded join on the injectable clock: every launch thread still
+        # out gets close_join_timeout to come back (persistent rows are
+        # cancelled, so a healthy thread returns within one poll; a chunked
+        # launch within its span). A thread still out past the bound is
+        # wedged: its control rows are kill-fenced (a zombie wake-up stops
+        # at its first poll and steers nothing), it is detached from the
+        # interpreter-exit join and counted, instead of blocking shutdown.
+        joinable = [rec for rec in list(self._inflight) if not self._launch_returned(rec)]
+        if joinable:
+            step = max(self.close_join_timeout / 20.0, 0.005)
+            deadline = self._clock.time() + self.close_join_timeout
+            while (
+                any(not self._launch_returned(rec) for rec in joinable)
+                and self._clock.time() < deadline
+            ):
+                # thread_done is set from launch threads in REAL time: the
+                # real-time poll gives liveness under a frozen FakeClock,
+                # while the bound itself rides the injectable clock.
+                timer = asyncio.ensure_future(self._clock.sleep(step))
+                poll = asyncio.ensure_future(asyncio.sleep(0.01))
+                await asyncio.wait({timer, poll}, return_when=asyncio.FIRST_COMPLETED)
+                timer.cancel()
+                poll.cancel()
+            for rec in joinable:
+                if self._launch_returned(rec):
+                    continue
+                if rec.control is not None:
+                    rec.control.kill_all()
+                self._m_threads_leaked.inc(1)
+                logger.error(
+                    "launch thread (batch=%d, steps=%d) wedged past the %.1fs "
+                    "close bound; detached and counted",
+                    rec.batch, rec.steps, self.close_join_timeout,
+                )
         self._inflight.clear()
         executor, self._executor = self._executor, None
         if executor is not None:
-            # A launch still on the device finishes off the event loop.
-            await asyncio.to_thread(executor.shutdown, wait=True)
+            self._detach_executor(executor)
+
+    # -- device fault domains (resilience/devfault.py) ---------------------
+
+    def _ensure_watchdog(self) -> None:
+        if not self._watchdog_enabled or self._closed:
+            return
+        if self._watchdog_task is None or self._watchdog_task.done():
+            self._watchdog_task = asyncio.ensure_future(self._watchdog_loop())
+
+    async def _watchdog_loop(self) -> None:
+        """Periodic health sweep on the injectable clock: declare devices
+        that missed their progress deadline suspect (→ evacuate →
+        quarantine) and launch re-admission probes when due."""
+        interval = max(self.device_suspect_after / 4.0, 0.01)
+        while not self._closed:
+            await self._clock.sleep(interval)
+            if self._closed:
+                return
+            try:
+                self._watchdog_pass()
+            except Exception:
+                # A watchdog bug must degrade to "no fault handling", not
+                # take the engine down with it.
+                logger.warning("device watchdog pass failed", exc_info=True)
+            self._spawn_due_probes()
+            if (
+                (self._engine_task is None or self._engine_task.done())
+                and not self._inflight
+                and len(self._dfd.healthy_devices()) == self._dfd.n
+            ):
+                return  # idle and fully healthy; _ensure_engine revives us
+
+    def _expected_poll_seconds(self) -> float:
+        """Expected wall seconds between a device's control polls, from the
+        window-time EMA of applied launches (0.0 until one applies — the
+        deadline then floors at device_suspect_after)."""
+        return self._window_seconds * max(1, self.control_poll_steps)
+
+    @staticmethod
+    def _launch_returned(rec: _Launch) -> bool:
+        """Has the launch THREAD actually come back? Judged by thread_done
+        (set in the thread's own finally), because the asyncio wrapper reads
+        done once its waiter is cancelled while the thread may be wedged.
+        ``fut`` stands in only for records made without the event."""
+        if rec.thread_done is not None:
+            return rec.thread_done.is_set()
+        return rec.fut.done()
+
+    def _watchdog_pass(self) -> None:
+        """One sweep over the in-flight launches: a device is EXPECTED to
+        poll every control_poll_steps windows until all its rows are done
+        or it clears its final poll block."""
+        now = self._clock.time()
+        suspects: list = []
+        hung_chunked: list = []
+        for rec in list(self._inflight):
+            if self._launch_returned(rec) or rec.abandoned:
+                continue
+            if rec.control is not None:
+                deadline = launch_deadline(
+                    self._expected_poll_seconds(), self.device_suspect_after
+                )
+                if rec.control.first_poll_t is None:
+                    # The launch has not polled at all yet (queued behind
+                    # another on its device's stream, or building): grant a
+                    # grace window so that does not read as a dead device.
+                    deadline += max(deadline, self._first_poll_seconds * DEADLINE_SLACK)
+                for s, d in enumerate(rec.fan_map or [0]):
+                    if self._dfd.state(d) != HEALTHY or d in suspects:
+                        continue
+                    if rec.control.device_accounted(s, rec.steps, self.control_poll_steps):
+                        continue
+                    t, _k = rec.control.last_poll(s)
+                    last = t if t is not None else rec.t_clock
+                    if now - last > deadline:
+                        suspects.append(d)
+            else:
+                # Chunked launches have no mid-launch bookkeeping: the whole
+                # launch is the unit, its deadline steps-scaled, and with no
+                # per-device evidence it is evacuated without quarantine.
+                deadline = launch_deadline(
+                    self._window_seconds * rec.steps, self.device_suspect_after
+                )
+                if self._window_seconds <= 0.0:
+                    deadline *= 2.0  # no timing history yet: a first launch's grace
+                if now - rec.t_clock > deadline:
+                    hung_chunked.append(rec)
+        for d in suspects:
+            self._declare_suspect(d)
+        for rec in hung_chunked:
+            if rec in self._inflight:
+                self._evacuate_launch(rec, reason="launch_hang")
+
+    def _declare_suspect(self, d: int) -> None:
+        """healthy → suspect → (evacuate) → quarantined, exactly once.
+
+        Every launch pinned by the suspect device is ejected (a fanned
+        launch cannot return while one member hangs) with its control rows
+        kill-fenced, then each affected job's uncovered remainder — the
+        suspect device's effective base plus its provably-dry windows — is
+        re-covered onto the remaining healthy devices through the
+        epoch-fenced re-cover path. Later launches run at degraded fan
+        width until a probe re-admits the device."""
+        if not self._dfd.mark_suspect(d):
+            return
+        wrecked = [
+            rec for rec in list(self._inflight)
+            if not self._launch_returned(rec) and not rec.abandoned
+            and d in (rec.fan_map or [0])
+        ]
+        evacuations: Dict[int, tuple] = {}
+        for rec in wrecked:
+            for i, job in enumerate(rec.jobs):
+                if job.cancelled or job.future.done():
+                    continue
+                start, length = self._dead_remainder(rec, i, job, d)
+                prev = evacuations.get(id(job))
+                # Several wrecked launches: keep the least-advanced
+                # remainder (re-covering a superset is overlap, not a gap).
+                if prev is None or ((start - job.part_start) & _MASK64) < (
+                    (prev[1] - job.part_start) & _MASK64
+                ):
+                    evacuations[id(job)] = (job, start, length)
+            self._eject_launch(rec)
+        for job, start, length in evacuations.values():
+            self._re_cover(job, start, length)
+        if evacuations:
+            # "A range was re-covered": a suspect device whose launches
+            # carried only done/cancelled jobs evacuates nothing.
+            self._dfd.record_evacuation("stalled_poll")
+        self._dfd.quarantine(d)
+        if self._dfd.exhausted():
+            self._fail_devices_exhausted()
+        self._wakeup.set()
+
+    def _dead_remainder(self, rec: _Launch, i: int, job: _Job, d: int) -> tuple:
+        """The suspect device's uncovered remainder of row ``i``: its
+        effective base (a delivered mid-launch rebase counts) advanced by
+        the windows its own polls PROVED dry, out to the end of the job's
+        recorded partition range (length 0 = soft / full span)."""
+        fan_map = rec.fan_map or [0]
+        s = fan_map.index(d)
+        base = rec.dev_bases[i][s] if rec.dev_bases is not None else rec.bases[i]
+        windows = 0
+        if rec.control is not None:
+            eb = rec.control.effective_base(i, s)
+            windows = rec.control.confirmed_no_hit_windows(i, s, self.control_poll_steps)
+            if eb is not None:
+                # A delivered rebase re-aimed the device at eb AT window
+                # applied_at_k: only the windows after that boundary were
+                # scanned from the new base.
+                base = eb
+                windows = max(0, windows - rec.control.applied_at_k(i, s))
+        start = (base + windows * self.chunk_per_shard) & _MASK64
+        if job.part_len:
+            end = (job.part_start + job.part_len) & _MASK64
+            length = (end - start) & _MASK64
+            if length > job.part_len:
+                length = 0  # frontier already past the range end: soft
+            return start, length
+        return start, 0
+
+    def _eject_launch(self, rec: _Launch) -> None:
+        """Pull a wrecked launch out of the pipeline: its results are
+        discarded, its control rows kill-fenced (the zombie thread stops at
+        its first wake-up poll and cannot be steered; the thread releases
+        its slot when it returns), and the executor is replaced so the
+        wedged worker cannot starve later launches."""
+        rec.abandoned = True
+        try:
+            self._inflight.remove(rec)
+        except ValueError:
+            pass
+        if rec.waiter is not None:
+            rec.waiter.cancel()
+        for job, f in zip(rec.jobs, rec.miss_factors):
+            if not job.future.done() and not job.cancelled:
+                # Its span will never be applied: undo the coverage factor.
+                job.inflight_miss = min(1.0, job.inflight_miss / f)
+        if rec.control is not None:
+            rec.control.kill_all()
+        rec.fut.add_done_callback(_consume_abandoned)
+        if rec.thread_done is not None and not rec.thread_done.is_set():
+            self._m_threads_leaked.inc(1)
+        if self._executor is not None:
+            self._detach_executor(self._executor)
+            self._executor = None
+        self._wakeup.set()
+
+    def _evacuate_launch(self, rec: _Launch, reason: str) -> None:
+        """Whole-launch evacuation (chunked backstop): eject the launch and
+        re-cover each live job from the launch's own dispatch frontier
+        (fan: the whole recorded partition range — chunked launches carry
+        no per-device progress evidence to narrow it)."""
+        jobs = [(i, j) for i, j in enumerate(rec.jobs) if not j.cancelled and not j.future.done()]
+        self._eject_launch(rec)
+        for i, job in jobs:
+            if self.fan is not None:
+                self._re_cover(job, job.part_start, job.part_len)
+            else:
+                self._re_cover(job, rec.bases[i], 0)
+        if jobs:
+            self._dfd.record_evacuation(reason)
+
+    def _fail_devices_exhausted(self) -> None:
+        """Zero healthy devices: every live waiter fails NOW with
+        DevicesExhausted, and new generates refuse until a probe re-admits
+        a device. The engine never carries on on another device."""
+        self._devices_exhausted = True
+        err_msg = (
+            f"all {self._dfd.n} device(s) quarantined; awaiting a "
+            "successful re-admission probe"
+        )
+        for job in list(self._jobs.values()):
+            if not job.future.done():
+                job.cancelled = True
+                self._control_cancel_job(job)
+                job.future.set_exception(DevicesExhausted(err_msg))
+        self._wakeup.set()
+
+    def _spawn_due_probes(self) -> None:
+        for d in range(self._dfd.n):
+            if not self._dfd.probe_due(d):
+                continue
+            task = self._probe_tasks.get(d)
+            if task is not None and not task.done():
+                continue
+            self._probe_tasks[d] = asyncio.ensure_future(self._probe_device(d))
+
+    async def _probe_device(self, d: int) -> None:
+        """The single re-admission launch for quarantined device ``d``: a
+        difficulty-1 probe row must come back (hitting at offset 0, the
+        setup self-test contract) within device_suspect_after on the
+        injectable clock. Success re-admits the device and re-balances live
+        jobs over the restored fan; failure re-opens the probe interval. On
+        the card a probe of a still-wedged device queues behind its grid on
+        the device's persistent stream and times out with it."""
+        probe = search.pack_params(bytes(32), 1, base=0)
+        devs = (d,) if self.fan is not None else None
+        ok = False
+        fut = None
+        try:
+            fut = self._submit_launch(np.stack([probe]), 1, devices=devs)
+            timer = asyncio.ensure_future(self._clock.sleep(self.device_suspect_after))
+            await asyncio.wait({fut, timer}, return_when=asyncio.FIRST_COMPLETED)
+            if fut.done():
+                timer.cancel()
+                lo, hi = fut.result()
+                ok = int(lo.flat[0]) == 0 and int(hi.flat[0]) == 0
+            else:
+                # The probe itself hung: abandon its thread (counted) and
+                # hand later launches a fresh executor.
+                timer.cancel()
+                fut.add_done_callback(_consume_abandoned)
+                self._m_threads_leaked.inc(1)
+                if self._executor is not None:
+                    self._detach_executor(self._executor)
+                    self._executor = None
+        except asyncio.CancelledError:
+            if fut is not None and not fut.done():
+                fut.add_done_callback(_consume_abandoned)
+            raise
+        except Exception:
+            ok = False  # a crashing probe is a failed probe
+        prev_active = self._fan_active if self.fan is not None else None
+        self._dfd.probe_result(d, ok)
+        if not ok:
+            return
+        self._devices_exhausted = False
+        if self.fan is not None:
+            # Re-balance live jobs over the restored fan: re-partition each
+            # from its least-advanced healthy frontier — overlap over gaps
+            # (soft ranges), and the epoch bump fences degraded launches
+            # still on the wire.
+            for job in list(self._jobs.values()):
+                if job.cancelled or job.future.done():
+                    continue
+                if job.dev_bases is not None and prev_active:
+                    # Least-advanced RELATIVE to the partition start
+                    # (wrap-aware).
+                    start = min(
+                        (job.dev_bases[dd] for dd in prev_active),
+                        key=lambda bs: (bs - job.part_start) & _MASK64,
+                    )
+                else:
+                    start = job.base
+                length = 0
+                if job.part_len:
+                    length = (job.part_start + job.part_len - start) & _MASK64
+                    if length > job.part_len:
+                        length = 0
+                self._re_cover(job, start, length)
+        self._wakeup.set()
+
+    @staticmethod
+    def _detach_executor(executor) -> None:
+        """shutdown(wait=False) AND waive the pool's threads from the
+        interpreter-exit join: concurrent.futures joins every worker at
+        shutdown, so one wedged launch thread would otherwise hang process
+        exit forever. Healthy threads still complete and resolve their
+        futures (private API, stable since 3.9)."""
+        import concurrent.futures.thread as cft
+
+        executor.shutdown(wait=False)
+        for t in list(getattr(executor, "_threads", ()) or ()):
+            cft._threads_queues.pop(t, None)
 
     # -- launches ---------------------------------------------------------
 
@@ -495,37 +1054,79 @@ class TorchWorkBackend(WorkBackend):
         floored away from 0.0 for the divide-back in _apply_results."""
         return max(math.exp(-span * cls._solve_p(difficulty)), 1e-12)
 
-    def _stream(self) -> "torch.cuda.Stream":
-        """This launch thread's own CUDA stream: a pipelined launch's
-        readback does not wait behind its successor's scan. Persistent
-        launches all take the engine's one shared stream (see __init__)."""
+    def _stream(self, device: torch.device) -> "torch.cuda.Stream":
+        """This launch thread's own CUDA stream on ``device``: a pipelined
+        launch's readback does not wait behind its successor's scan.
+        Persistent launches take the device's one shared stream (see
+        __init__)."""
         if self.run_mode == "persistent":
             with self._lock:
-                if self._persistent_stream is None:
-                    self._persistent_stream = torch.cuda.Stream(device=self.device)
-                return self._persistent_stream
-        stream = getattr(self._tls, "stream", None)
+                stream = self._persistent_streams.get(device.index)
+                if stream is None:
+                    stream = self._persistent_streams[device.index] = torch.cuda.Stream(
+                        device=device
+                    )
+                return stream
+        streams = getattr(self._tls, "streams", None)
+        if streams is None:
+            streams = self._tls.streams = {}
+        stream = streams.get(device.index)
         if stream is None:
-            stream = self._tls.stream = torch.cuda.Stream(device=self.device)
+            stream = streams[device.index] = torch.cuda.Stream(device=device)
         return stream
 
-    def _launch(self, params_batch: np.ndarray, steps: int, slot: int = 0) -> tuple:
+    def _members(self, devices: Optional[tuple]) -> list:
+        """The torch devices of a fan launch: every member, or the PHYSICAL
+        indices ``devices`` (degraded width, probes)."""
+        idx = range(len(self.fan)) if devices is None else devices
+        return [self.fan[d] for d in idx]
+
+    def _member_streams(self, members: list) -> Optional[list]:
+        if self.device.type != "cuda":
+            return None
+        return [self._stream(d) for d in members]
+
+    def _launch(
+        self, params_batch: np.ndarray, steps: int, slot: int = 0,
+        devices: Optional[tuple] = None,
+    ) -> tuple:
         """One blocking batched launch (called on a worker thread).
 
         Returns (lo, hi) uint32[B] — absolute winning nonces per row,
-        all-ones where the span held no solution. ``steps`` widens the span
-        to ``steps`` consecutive windows in the same launch. In persistent
+        all-ones where the span held no solution; a fan launch returns
+        them per device, [n_dev, B]. ``steps`` widens the span to ``steps``
+        consecutive windows per device in the same launch. In persistent
         mode the span runs as one steerable launch polling control slot
         ``slot`` (0: no control block, the polls read dead zeros).
+        ``devices`` pins a fan launch to those PHYSICAL member indices
+        (degraded width after quarantine, single-device probes).
         """
+        ctl.launch_hook(self._launch_hook_indices(devices))
         if self.run_mode == "persistent":
-            return self._launch_persistent(params_batch, steps, slot)
+            return self._launch_persistent(params_batch, steps, slot, devices)
+        if self.fan is not None:
+            members = self._members(devices)
+            span_dev = self.chunk_per_shard * steps
+            if params_batch.ndim == 2:
+                # Bare rows (setup self-test, probes): stagger from each
+                # row's own base so the fan covers a contiguous window.
+                params_batch = fan_search.stagger(params_batch, len(members), span_dev)
+            offs = fan_search.fan_search_devices(
+                params_batch, devices=members, chunk_per_shard=span_dev,
+                sublanes=self.sublanes, iters=self.iters, nblocks=self.nblocks * steps,
+                group=self.group, streams=self._member_streams(members),
+            )
+            flat_p = params_batch.reshape(-1, search.PARAMS_LEN)
+            lo, hi = self._offsets_to_nonces(flat_p, offs.reshape(-1))
+            # Per-device absolute nonces [n_dev, B]; the host elects the
+            # winner against the launch's base snapshot and attributes it.
+            return lo.reshape(offs.shape), hi.reshape(offs.shape)
         kwargs = dict(
             sublanes=self.sublanes, iters=self.iters,
             nblocks=self.nblocks * steps, group=self.group,
         )
         if self.device.type == "cuda":
-            with torch.cuda.stream(self._stream()):
+            with torch.cuda.stream(self._stream(self.device)):
                 params = search.params_from_numpy(params_batch, self.device)
                 out = cuda_kernel.cuda_search_chunk_batch(params, **kwargs)
                 offs = search.offsets_to_numpy(out)
@@ -536,39 +1137,77 @@ class TorchWorkBackend(WorkBackend):
             )
         return self._offsets_to_nonces(params_batch, offs)
 
-    def _launch_persistent(self, params_batch: np.ndarray, steps: int, slot: int) -> tuple:
+    def _launch_hook_indices(self, devices: Optional[tuple]) -> tuple:
+        """PHYSICAL fan indices this launch touches — the chaos seam's
+        device identities (ops/control.py launch_hook)."""
+        if self.fan is None:
+            return (0,)
+        if devices is None:
+            return tuple(range(len(self.fan)))
+        return tuple(devices)
+
+    def _launch_persistent(
+        self, params_batch: np.ndarray, steps: int, slot: int,
+        devices: Optional[tuple] = None,
+    ) -> tuple:
         """One blocking PERSISTENT launch: ``steps`` windows of
-        ``self.chunk`` nonces per row, polling control slot ``slot`` every
-        ``control_poll_steps`` windows, returning on win, cancel or span
-        end. Same (lo, hi) contract as the chunked launch."""
-        kwargs = dict(
-            max_steps=steps, poll_steps=self.control_poll_steps,
-            sublanes=self.sublanes, iters=self.iters, nblocks=self.nblocks,
-            group=self.group,
-        )
-        # Nothing here may wait on the shared stream: a successor kernel
-        # queued on it needs its own thread to serve its polls
+        ``chunk_per_shard`` nonces per row and device, polling control slot
+        ``slot`` every ``control_poll_steps`` windows, returning on win,
+        cancel or span end. Same (lo, hi) contract as the chunked launch."""
+        geo = dict(sublanes=self.sublanes, iters=self.iters, nblocks=self.nblocks,
+                   group=self.group)
+        if self.fan is not None:
+            members = self._members(devices)
+            if params_batch.ndim == 2:
+                # Bare rows (setup self-test, probes): block-interleave from
+                # each row's own base, as the fan scans contiguously per
+                # device.
+                params_batch = fan_search.stagger(
+                    params_batch, len(members), self.chunk_per_shard * steps
+                )
+            return fan_search.fan_search_run_controlled(
+                params_batch, slot, devices=members, chunk_per_shard=self.chunk_per_shard,
+                max_steps=steps, poll_steps=self.control_poll_steps,
+                streams=self._member_streams(members), **geo,
+            )
+        # Nothing here may wait on the device's shared stream: a successor
+        # kernel queued on it needs its own thread to serve its polls
         # (ops/cuda_kernel.py). The rows go up without a host wait and the
         # results come back on the host.
         on_card = self.device.type == "cuda"
-        with torch.cuda.stream(self._stream()) if on_card else contextlib.nullcontext():
+        with torch.cuda.stream(self._stream(self.device)) if on_card else contextlib.nullcontext():
             params = search.params_from_numpy(params_batch, self.device, non_blocking=True)
-            lo, hi = runloop.search_run_batch_controlled(params, None, slot, **kwargs)
+            lo, hi = runloop.search_run_batch_controlled(
+                params, None, slot, max_steps=steps, poll_steps=self.control_poll_steps, **geo
+            )
             return search.offsets_to_numpy(lo), search.offsets_to_numpy(hi)
 
     def _submit_launch(
-        self, params_batch: np.ndarray, steps: int, slot: int = 0
+        self, params_batch: np.ndarray, steps: int, slot: int = 0,
+        devices: Optional[tuple] = None, timing: Optional[dict] = None,
+        thread_done: Optional[threading.Event] = None,
     ) -> asyncio.Future:
         """Hand a launch to the executor; device work starts immediately.
-        ``slot`` routes a persistent launch's control polls (0: none)."""
+        ``slot`` routes a persistent launch's control polls (0: none);
+        ``devices`` pins a fan launch to a subset; ``timing`` receives the
+        thread's stage stamps; ``thread_done`` is set when the thread
+        returns."""
         if self._executor is None:
+            # pipeline launch threads + one for a re-admission probe.
             self._executor = concurrent.futures.ThreadPoolExecutor(
-                max_workers=self.pipeline
+                max_workers=self.pipeline + 1
             )
 
         def call_launch():
             try:
-                return self._launch(params_batch, steps, slot)
+                if timing is not None:
+                    timing["t_thread"] = time.perf_counter()
+                    timing["t_thread_clock"] = self._clock.time()
+                out = self._launch(params_batch, steps, slot, devices)
+                if timing is not None:
+                    timing["t_done"] = time.perf_counter()
+                    timing["t_done_clock"] = self._clock.time()
+                return out
             finally:
                 # The control slot lives exactly as long as the launch:
                 # releasing it earlier would feed a still-running kernel
@@ -576,17 +1215,41 @@ class TorchWorkBackend(WorkBackend):
                 # idempotent; the apply path's release stays as a backstop.
                 if slot:
                     ctl.release(slot)
+                if thread_done is not None:
+                    thread_done.set()
 
         cf = self._executor.submit(call_launch)
-        if slot:
+        if slot or thread_done is not None:
             # A launch cancelled before its thread took it up never runs
-            # call_launch, so its finally cannot release the slot.
+            # call_launch, so its finally cannot release the slot or mark
+            # the thread done.
             def release_unstarted(f: concurrent.futures.Future) -> None:
                 if f.cancelled():
-                    ctl.release(slot)
+                    if slot:
+                        ctl.release(slot)
+                    if thread_done is not None:
+                        thread_done.set()
 
             cf.add_done_callback(release_unstarted)
         return asyncio.wrap_future(cf)
+
+    async def _await_launch(self, fut: asyncio.Future, what: str) -> tuple:
+        """``fut``'s result, bounded by launch_timeout: a launch that never
+        returns fails the engine with a WorkError (its thread is detached
+        and counted), instead of hanging every waiter."""
+        if self.launch_timeout is None:
+            return await fut
+        try:
+            return await asyncio.wait_for(asyncio.shield(fut), self.launch_timeout)
+        except asyncio.TimeoutError:
+            fut.add_done_callback(_consume_abandoned)
+            if self._executor is not None:
+                self._detach_executor(self._executor)
+                self._executor = None
+            self._m_threads_leaked.inc(1)
+            raise WorkError(
+                f"device launch exceeded {self.launch_timeout:.0f}s ({what})"
+            ) from None
 
     @staticmethod
     def _offsets_to_nonces(params_batch: np.ndarray, offs: np.ndarray) -> tuple:
@@ -612,11 +1275,96 @@ class TorchWorkBackend(WorkBackend):
             out[i] = jobs[i].params if i < len(jobs) else self._PAD_ROW
         return out
 
+    # -- device fan (devices != 0) ------------------------------------------
+
+    @property
+    def _fan_active(self) -> list:
+        """PHYSICAL indices of the devices currently in the fan: the healthy
+        set of the fault domains. Quarantined devices are excluded from
+        partitions and launches until a probe re-admits them."""
+        return self._dfd.healthy_devices()
+
+    def _fan_partition(self, job: _Job, start: int, length: int) -> None:
+        """Sub-partition ``[start, start+length)`` (length 0 = full 2^64
+        span) across the HEALTHY fan.
+
+        'split' gives each device a contiguous macro-range (its own shard:
+        per-device frontier, scan counter and scan clock). 'interleave'
+        keeps ONE frontier and deals consecutive per-launch windows
+        round-robin (device d takes the d-th window of every launch). Ends
+        are soft either way: a device may overrun into its neighbor's
+        sub-range rather than strand a dispatch whose shard holds no
+        solution.
+        """
+        n_total = len(self.fan)
+        active = self._fan_active
+        n = max(len(active), 1)
+        job.set_base(start)
+        job.part_start, job.part_len = start & _MASK64, length
+        if self.device_shard == "split":
+            stride = max((length or (1 << 64)) // n, 1)
+            # Full-length table (stale entries for quarantined devices are
+            # never packed); strides go to the healthy set in order.
+            if job.dev_bases is None or len(job.dev_bases) != n_total:
+                job.dev_bases = [start & _MASK64] * n_total
+            for i, d in enumerate(active):
+                job.dev_bases[d] = (start + i * stride) & _MASK64
+        else:
+            job.dev_bases = None  # derived from the frontier at pack time
+        job.dev_scanned = [0] * n_total
+        job.dev_t0 = None  # stamped at the first dispatch of this partition
+        job.epoch += 1
+
+    def _fan_launch_bases(self, job: _Job, span_dev: int) -> list:
+        """This launch's per-slice bases for one job (pre-advance),
+        parallel to the current healthy set."""
+        active = self._fan_active
+        if job.dev_bases is not None:  # split: each device's own frontier
+            return [job.dev_bases[d] for d in active]
+        # interleave: consecutive windows of the single frontier
+        return [(job.base + i * span_dev) & _MASK64 for i in range(len(active))]
+
+    def _rebase_bases_for(self, rec: _Launch, job: _Job, span_dev: int) -> list:
+        """Per-slice rebase bases for a RUNNING launch — keyed by the
+        launch's own fan_map, which may differ from the current healthy set
+        (a pre-quarantine launch still on the wire)."""
+        fan_map = rec.fan_map or list(range(len(self.fan)))
+        if job.dev_bases is not None:
+            return [job.dev_bases[d] for d in fan_map]
+        return [(job.base + s * span_dev) & _MASK64 for s in range(len(fan_map))]
+
+    def _fan_advance(self, job: _Job, span_dev: int) -> None:
+        """Speculative frontier advance at dispatch (active device shards)."""
+        active = self._fan_active
+        if job.dev_bases is not None:
+            for d in active:
+                job.dev_bases[d] = (job.dev_bases[d] + span_dev) & _MASK64
+        else:
+            job.set_base(job.base + span_dev * max(len(active), 1))
+
+    def _fan_stack(self, jobs: list, b: int, steps: int) -> tuple:
+        """Fan batch: uint32[n_dev, b, 12] plus the per-job base snapshot.
+        Row content matches _pack; each device's slice carries that
+        device's base words. Width is the HEALTHY fan."""
+        n = len(self._fan_active)
+        span_dev = self.chunk_per_shard * steps
+        rows = self._pack(jobs, b)
+        stacked = np.repeat(rows[None], n, axis=0)
+        snap = []
+        for i, job in enumerate(jobs):
+            bases = self._fan_launch_bases(job, span_dev)
+            snap.append(bases)
+            for d, base in enumerate(bases):
+                stacked[d, i, search.BASE_LO] = base & 0xFFFFFFFF
+                stacked[d, i, search.BASE_HI] = base >> 32
+        return stacked, snap
+
     # -- engine -----------------------------------------------------------
 
     def _ensure_engine(self) -> None:
         if self._engine_task is None or self._engine_task.done():
             self._engine_task = asyncio.ensure_future(self._engine_loop())
+        self._ensure_watchdog()
 
     def _next_rung(self, rungs: Dict[int, list]) -> int:
         """Next difficulty rung to serve, round-robin by run length."""
@@ -640,6 +1388,8 @@ class TorchWorkBackend(WorkBackend):
         here, so a successor launch scans the NEXT span.
         """
         self._gc_jobs()
+        if self._devices_exhausted or (self.fan is not None and not self._fan_active):
+            return None  # zero healthy devices: nothing can be dispatched
         alive = [j for j in self._jobs.values() if not j.cancelled]
         if not alive:
             return None
@@ -683,17 +1433,43 @@ class TorchWorkBackend(WorkBackend):
         else:
             active = pool[: self.max_batch]
         b = next(s for s in self._batch_sizes() if s >= len(active))
-        span = self.chunk * steps
+        dev_snap, fan_map, launch_devs = None, None, None
+        if self.fan is not None:
+            # Snapshot the healthy set: the launch runs on exactly these
+            # devices, and every apply/attribution path maps its slices
+            # through this list — the watchdog may shrink the fan while
+            # this launch is still on the wire.
+            fan_map = list(self._fan_active)
+            params, dev_snap = self._fan_stack(active, b, steps)
+            if fan_map != list(range(len(self.fan))):
+                launch_devs = tuple(fan_map)
+            span = self.chunk_per_shard * steps * len(fan_map)
+            for j in active:
+                if j.dev_t0 is None:
+                    # Per-device scan clocks start at the partition's first
+                    # dispatch (all devices launch together in one pack).
+                    j.dev_t0 = [self._clock.time()] * len(self.fan)
+        else:
+            params = self._pack(active, b)
+            span = self.chunk * steps
         factors = [self._miss_factor(j.difficulty, span) for j in active]
         slot, launch_control = 0, None
         if self.run_mode == "persistent":
             # One control block per launch, slot-registered so the launch
-            # thread can route the kernel's polls; the thread releases the
-            # slot once the launch has returned.
-            launch_control = ctl.LaunchControl(b, clock=self._clock)
+            # threads can route the kernels' polls; the launch thread
+            # releases the slot once the launch has returned.
+            launch_control = ctl.LaunchControl(
+                b, clock=self._clock, n_dev=len(fan_map) if fan_map else 1,
+                fan_map=fan_map,
+            )
             slot = ctl.register(launch_control)
+        timing: dict = {}
+        thread_done = threading.Event()
         rec = _Launch(
-            fut=self._submit_launch(self._pack(active, b), steps, slot),
+            fut=self._submit_launch(
+                params, steps, slot, devices=launch_devs, timing=timing,
+                thread_done=thread_done,
+            ),
             jobs=active,
             # Snapshot targets and bases at launch: a concurrent dedup may
             # raise job.difficulty, and a pipelined successor dispatch will
@@ -704,31 +1480,84 @@ class TorchWorkBackend(WorkBackend):
             span=span,
             miss_factors=factors,
             steps=steps,
+            batch=b,
             control=launch_control,
             slot=slot,
+            dev_bases=dev_snap,
+            fan_map=fan_map,
+            timing=timing,
+            t_clock=self._clock.time(),
+            thread_done=thread_done,
         )
+        span_dev = self.chunk_per_shard * steps
         for job, f in zip(active, factors):
-            job.set_base(job.base + span)
+            if self.fan is not None:
+                self._fan_advance(job, span_dev)
+            else:
+                job.set_base(job.base + span)
             job.inflight_miss *= f
         return rec
 
     def _apply_results(self, rec: _Launch, lo_arr, hi_arr) -> None:
         c = rec.control
+        windows_ran = rec.steps
         if c is not None:
             # The launch is off the device: retire its slot (idempotent; the
             # launch thread released it already) and export what the channel
             # saw — launch length, polls, commands delivered and their
             # issue->delivery latency on the injectable clock.
             ctl.release(rec.slot)
+            windows_ran = min(c.last_k + self.control_poll_steps, rec.steps)
             self._m_p_polls.inc(c.polls)
-            self._m_p_windows.observe(min(c.last_k + self.control_poll_steps, rec.steps))
+            self._m_p_windows.observe(windows_ran)
             for _row, action, latency, _token in c.delivered:
                 self._m_p_control.inc(1, action)
                 self._m_p_effect.observe(latency)
+        timing = rec.timing
+        if "t_done" in timing and "t_thread" in timing:
+            # Wall seconds per launch window (EMA): the poll-cadence →
+            # seconds conversion behind the watchdog's progress deadlines.
+            dev_s = timing["t_done"] - timing["t_thread"]
+            if dev_s > 0.0 and windows_ran > 0:
+                w = dev_s / windows_ran
+                self._window_seconds = (
+                    w if self._window_seconds <= 0.0 else 0.3 * w + 0.7 * self._window_seconds
+                )
+        if c is not None and c.first_poll_t is not None:
+            # Dispatch → first-poll latency on the engine clock: the
+            # never-polled-yet grace window's scale.
+            fp = max(0.0, c.first_poll_t - rec.t_clock)
+            self._first_poll_seconds = (
+                fp if self._first_poll_seconds <= 0.0 else 0.3 * fp + 0.7 * self._first_poll_seconds
+            )
         for job, f in zip(rec.jobs, rec.miss_factors):
             # This launch is no longer in flight: undo its coverage factor
             # (clamped — repeated multiply/divide may drift past 1.0).
             job.inflight_miss = min(1.0, job.inflight_miss / f)
+        if rec.dev_bases is not None:
+            self._apply_fan_rows(rec, lo_arr, hi_arr)
+        else:
+            self._apply_plain_rows(rec, lo_arr, hi_arr)
+
+    def _record_solve(self, job: _Job, work: str) -> None:
+        """Shared per-solve bookkeeping (plain and fan apply paths)."""
+        self.total_solutions += 1
+        # Persistent successors still scanning the solved job exit within
+        # one poll interval instead of grinding on.
+        self._control_cancel_job(job)
+        job.future.set_result(work)
+
+    def _invalid_work(self, job: _Job, work: str, value: int, launched: int) -> None:
+        """Device/host disagreement: a real bug, surfaced to the waiter."""
+        job.future.set_exception(
+            WorkError(
+                f"device produced invalid work {work} for "
+                f"{job.block_hash} (value {value:016x} < {launched:016x})"
+            )
+        )
+
+    def _apply_plain_rows(self, rec: _Launch, lo_arr, hi_arr) -> None:
+        c = rec.control
         for i, (job, launched, base, epoch, lo, hi) in enumerate(zip(
             rec.jobs, rec.launched_difficulty, rec.bases, rec.epochs,
             lo_arr[: len(rec.jobs)], hi_arr[: len(rec.jobs)],
@@ -756,24 +1585,144 @@ class TorchWorkBackend(WorkBackend):
             work = search.work_hex_from_nonce(nonce)
             value = nc.work_value(job.block_hash, work)
             if value >= job.difficulty:
-                self.total_solutions += 1
-                # Persistent successors still scanning the solved job exit
-                # within one poll interval instead of grinding on.
-                self._control_cancel_job(job)
-                job.future.set_result(work)
+                self._record_solve(job, work)
             elif value >= launched:
                 # Valid for the target this launch ran at, but the target
                 # was raised mid-flight: search on past this nonce — unless
                 # the job was re-aimed while the launch was on the wire.
                 if epoch == job.epoch:
                     job.set_base(nonce + 1)
-            else:  # device/host disagreement: a real bug, surface it
-                job.future.set_exception(
-                    WorkError(
-                        f"device produced invalid work {work} for "
-                        f"{job.block_hash} (value {value:016x} < {launched:016x})"
+            else:
+                self._invalid_work(job, work, value, launched)
+
+    def _apply_fan_rows(self, rec: _Launch, lo_arr, hi_arr) -> None:
+        """Apply one fanned launch: winner election + device attribution.
+
+        ``lo_arr``/``hi_arr`` are per-device absolute nonces [n_dev, B].
+        Per row, the hit scanned in the fewest nonces from its device's
+        launch base wins (deterministic, the mesh election's order); the
+        win is attributed to that device: its scan counter and scan clock
+        produce the EMA sample.
+        """
+        fan_map = rec.fan_map or list(range(len(self.fan)))
+        n = len(fan_map)  # launch slices; fan_map[s] is the physical device
+        span_dev = rec.span // n
+        per_slice_scanned = [0] * n
+        c = rec.control
+        for i, (job, launched, bases, epoch) in enumerate(zip(
+            rec.jobs, rec.launched_difficulty, rec.dev_bases, rec.epochs
+        )):
+            # Mid-launch control is applied PER DEVICE: each member polls
+            # (and exits) independently, so a command counts only on the
+            # devices that actually observed it.
+            launched_dev = [launched] * n
+            epoch_dev = [epoch] * n
+            dry_scan = [span_dev] * n
+            if c is not None:
+                bases = list(bases)
+                for s in range(n):
+                    eb = c.effective_base(i, s)
+                    if eb is not None:
+                        bases[s] = eb
+                    ed = c.effective_difficulty(i, s)
+                    if ed is not None:
+                        launched_dev[s] = ed
+                    epoch_dev[s] = c.effective_epoch(i, epoch, s)
+                    dry_scan[s] = min(
+                        span_dev, c.windows_run(i, rec.steps, s) * self.chunk_per_shard
                     )
-                )
+            # Per-slice results for this row: (local offset, slice, nonce).
+            cands = []
+            row_scanned = list(dry_scan)
+            for s in range(n):
+                nonce = (int(hi_arr[s, i]) << 32) | int(lo_arr[s, i])
+                if nonce == _MASK64:
+                    continue  # this device's sub-span was dry
+                local = (nonce - bases[s]) & _MASK64
+                row_scanned[s] = local + 1
+                cands.append((local, s, nonce))
+            hit_slices = {s for _l, s, _n in cands}
+            for s in range(n):
+                d = fan_map[s]
+                per_slice_scanned[s] += row_scanned[s]
+                self.total_hashes += row_scanned[s]
+                if job.dev_scanned is not None and epoch_dev[s] == job.epoch:
+                    # Same-partition results only; a device that ADOPTED a
+                    # rebase mid-launch and then ran dry scanned its pre-
+                    # rebase windows in the OLD partition.
+                    credit = row_scanned[s]
+                    if c is not None and s not in hit_slices:
+                        credit = max(0, credit - c.applied_at_k(i, s) * self.chunk_per_shard)
+                    job.dev_scanned[d] += credit
+            if job.future.done() or not cands:
+                continue
+            cands.sort()  # fewest-nonces-scanned first, slice as tiebreak
+            for local, s, nonce in cands:
+                d = fan_map[s]
+                work = search.work_hex_from_nonce(nonce)
+                value = nc.work_value(job.block_hash, work)
+                if value >= job.difficulty:
+                    self._record_solve(job, work)
+                    self._attribute_win(job, d, epoch_dev[s])
+                    break
+                elif value >= launched_dev[s]:
+                    # Valid at the target device d ran at, raised past it
+                    # meanwhile: ONLY that device resumes past it — unless
+                    # the job was re-partitioned while this launch was on
+                    # the wire.
+                    if epoch_dev[s] == job.epoch:
+                        if job.dev_bases is not None:
+                            job.dev_bases[d] = (nonce + 1) & _MASK64
+                        else:
+                            job.set_base(nonce + 1)
+                else:
+                    self._invalid_work(job, work, value, launched_dev[s])
+                    break
+        self._fan_update_device_metrics(rec, per_slice_scanned)
+
+    def _attribute_win(self, job: _Job, d: int, epoch: int) -> None:
+        """Fold one win into device d's EMA on ITS scan clock."""
+        if job.dev_scanned is None or job.dev_t0 is None or epoch != job.epoch:
+            return
+        self._m_dev_wins.inc(1, str(d))
+        elapsed = self._clock.time() - job.dev_t0[d]
+        hashes = job.dev_scanned[d]
+        if elapsed <= 0.0 or hashes <= 0:
+            return
+        sample = hashes / elapsed
+        if self.device_ema[d] <= 0.0:
+            self.device_ema[d] = sample
+        else:
+            a = self.fan_ema_alpha
+            self.device_ema[d] = a * sample + (1.0 - a) * self.device_ema[d]
+        self._m_dev_ema.set(self.device_ema[d], str(d))
+        self.last_win = {
+            "device": d,
+            "hashes": hashes,
+            "elapsed": elapsed,
+            "sample_hs": sample,
+            "ema_hs": self.device_ema[d],
+        }
+
+    def _fan_update_device_metrics(self, rec: _Launch, per_slice_scanned: list) -> None:
+        fan_map = rec.fan_map or list(range(len(self.fan)))
+        timing = rec.timing
+        # Device time (perf_counter) feeds the H/s rate, a hardware measure;
+        # busy-vs-wall rides the injectable clock on both sides.
+        dev_seconds = max(0.0, timing.get("t_done", 0.0) - timing.get("t_thread", 0.0))
+        busy_clock = max(
+            0.0, timing.get("t_done_clock", 0.0) - timing.get("t_thread_clock", 0.0)
+        )
+        wall = self._clock.time() - self._fan_wall_t0
+        for d, scanned in zip(fan_map, per_slice_scanned):
+            label = str(d)
+            self._m_dev_launches.inc(1, label)
+            self._m_dev_hashes.inc(scanned, label)
+            if dev_seconds > 0.0:
+                self._m_dev_rate.set(scanned / dev_seconds, label)
+            self._dev_busy[d] += busy_clock
+            if wall > 0.0:
+                self._m_dev_busy.set(min(1.0, self._dev_busy[d] / wall), label)
 
     async def _engine_loop(self) -> None:
         inflight = self._inflight
@@ -789,7 +1738,17 @@ class TorchWorkBackend(WorkBackend):
             raise
         finally:
             for r in inflight:
-                r.fut.cancel()
+                if r.waiter is not None:
+                    r.waiter.cancel()
+                if r.control is not None:
+                    # Never applied: cancel every row so the orphan thread
+                    # exits at its next poll — a launch whose thread has not
+                    # started yet at its first — and releases its slot.
+                    for i in range(len(r.jobs)):
+                        r.control.cancel(i)
+                    r.fut.add_done_callback(_consume_abandoned)
+                else:
+                    r.fut.cancel()
 
     async def _engine_loop_body(self, inflight: deque) -> None:
         while not self._closed:
@@ -819,20 +1778,33 @@ class TorchWorkBackend(WorkBackend):
                     break
                 inflight.append(rec)
             if not inflight:
-                await asyncio.sleep(0)  # cancelled stragglers gc'd next pass
+                if self._devices_exhausted or (self.fan is not None and not self._fan_active):
+                    # Nothing can dispatch until a probe re-admits a device.
+                    self._wakeup.clear()
+                    await self._wakeup.wait()
+                else:
+                    await asyncio.sleep(0)  # cancelled stragglers gc'd next pass
                 continue
             # Wait on the OLDEST launch's readback, interruptibly: a fresh
             # request is dispatched into a free pipeline slot right away.
             # Results still apply strictly in FIFO order.
             rec = inflight[0]
+            if rec.waiter is None:
+                rec.waiter = asyncio.ensure_future(self._await_launch(
+                    rec.fut, f"batch={rec.batch}, steps={rec.steps}"
+                ))
             wake = asyncio.ensure_future(self._wakeup.wait())
             try:
-                await asyncio.wait({rec.fut, wake}, return_when=asyncio.FIRST_COMPLETED)
+                await asyncio.wait({rec.waiter, wake}, return_when=asyncio.FIRST_COMPLETED)
             finally:
                 wake.cancel()
-            if not rec.fut.done():
+            if rec.abandoned:
+                # The watchdog ejected the head launch mid-wait: it is out
+                # of the deque, and its results must never be applied.
+                continue
+            if not rec.waiter.done():
                 continue  # new demand: refill free slots, then keep waiting
-            lo_arr, hi_arr = rec.fut.result()
+            lo_arr, hi_arr = rec.waiter.result()
             inflight.popleft()
             self._apply_results(rec, lo_arr, hi_arr)
 

@@ -4,7 +4,10 @@
 // Replaces tpu_dpow/ops/runloop.py's `run_loop_core` (the while_loop of
 // windows around the Pallas search kernel, reached through
 // `search_run_batch` and `search_run_batch_controlled`), including its
-// control poll through `io_callback`. One cooperative grid runs the whole
+// control poll through `io_callback`, and the same loop as each device of
+// tpu_dpow/parallel/fan_search.py runs it (`_fan_run_fn`,
+// `_fan_controlled_fn`): windows of `window` nonces whose bases advance by
+// a `stride` (see "Strided windows" below). One cooperative grid runs the whole
 // launch; per-row state (difficulty, base, done, seq, winning nonce and the
 // poll block's best offset) lives in device memory. Each outer iteration:
 //
@@ -27,7 +30,17 @@
 //      row's best; a warp stops once its next offset is not below the best
 //      (it skips only work that cannot lower it).
 //   4. Grid barrier; the leader folds each row's best into done / nonce,
-//      advances live rows' bases by the span, and advances k.
+//      advances live rows' bases by the span (by
+//      the stride for strided windows), and advances k.
+//
+// Strided windows (stride > window): a device of a fan scans its own
+// `window` nonces of every `stride` (window k covers [base + k * stride,
+// + window)), so a run of windows is no longer one contiguous span. Each
+// window is then a span of its own (one window per outer iteration), and
+// the leader advances a live row's base by `stride` after it: the first hit
+// is the lowest k, then the lowest offset in that window, as in the
+// window-by-window loop. With stride == window the loop is the contiguous
+// one above, unchanged.
 //
 // The loop ends when every row is done or k == max_steps. It polls when k
 // reaches the next multiple of poll_steps (k = 0 included) with a row still
@@ -110,7 +123,7 @@ struct RunShared {
   unsigned long long k;             // windows run so far
   unsigned long long next_poll_k;   // k of the next poll
   unsigned long long span_steps;    // windows per span (kMaxSpan / window, >= 1)
-  unsigned long long pad;
+  unsigned long long advance;       // base advance of a live row after the span
 };
 
 static_assert(sizeof(RowState) == 48, "RowState is six words");
@@ -193,7 +206,7 @@ __device__ __forceinline__ void scan_span(uint32_t span, uint64_t base, uint64_t
 __global__ void __launch_bounds__(kThreads)
     b2_run_kernel(const uint32_t* __restrict__ params, const uint8_t* __restrict__ active,
                   RunShared* shared, RowState* rows, uint32_t* out, int nrows, uint32_t window,
-                  int max_steps, int poll_steps, uint32_t* mbox) {
+                  uint32_t stride, int max_steps, int poll_steps, uint32_t* mbox) {
   const int row = blockIdx.y;
   const bool row_leader = blockIdx.x == 0 && threadIdx.x == 0;
   const bool leader = row_leader && row == 0;
@@ -220,7 +233,8 @@ __global__ void __launch_bounds__(kThreads)
     sh->polls = 0;
     sh->k = 0;
     sh->next_poll_k = 0;
-    sh->span_steps = window >= kMaxSpan ? 1 : kMaxSpan / window;
+    // Strided windows are one span each; contiguous ones are cut at kMaxSpan.
+    sh->span_steps = stride != window || window >= kMaxSpan ? 1 : kMaxSpan / window;
   }
   cg::this_grid().sync();
 
@@ -239,6 +253,7 @@ __global__ void __launch_bounds__(kThreads)
       if (mbox != nullptr && sh->next_poll_k < end) end = sh->next_poll_k;
       const uint64_t steps = end - k < sh->span_steps ? end - k : sh->span_steps;
       sh->span = steps * window;
+      sh->advance = steps * stride;  // == span when stride == window
       sh->exit = exit ? 1u : 0u;
       sh->k = k + steps;
     }
@@ -250,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     cg::this_grid().sync();
     if (leader) {
-      const uint32_t span = static_cast<uint32_t>(sh->span);
+      const unsigned long long advance = sh->advance;
       for (int r = 0; r < nrows; ++r) {
         if (vrows[r].done) continue;
         const uint32_t best = vrows[r].best;
@@ -258,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
           vrows[r].done = 1;
           vrows[r].nonce = vrows[r].base + best;  // 64-bit carry, wraps at 2^64
         } else {
-          vrows[r].base = vrows[r].base + span;
+          vrows[r].base = vrows[r].base + advance;
         }
         vrows[r].best = kSentinel;
       }
@@ -310,7 +325,7 @@ cudaError_t resident_blocks(int* total) {
 
 extern "C" {
 
-int b2_abi_version() { return 2; }
+int b2_abi_version() { return 3; }
 
 const char* b2_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
@@ -333,13 +348,16 @@ int b2_run_blocks_per_row(int rows) {
 // params: uint32 [rows, 12]; active: uint8 [rows] or null (every row live);
 // state: b2_run_state_words(rows) 64-bit words of device scratch; out:
 // b2_run_out_words(rows) uint32 words, device memory or the mailbox's mapped
-// tail (lo words, hi words, then the poll statistics); mbox: the mailbox's
+// tail (lo words, hi words, then the poll statistics); window: nonces each
+// row scans per step; stride: the base advance per step (window <= stride <
+// 2^31; stride == window is the contiguous scan); mbox: the mailbox's
 // device pointer, or null for a launch without control. Returns the
 // launch's cudaError_t.
 int b2_run_launch(const void* params, const void* active, void* state, void* out, int rows,
-                  unsigned int window, int max_steps, int poll_steps, void* mbox, void* stream) {
-  if (rows <= 0 || rows > 65535 || window == 0 || window >= (1u << 31) || max_steps < 0 ||
-      (mbox != nullptr && poll_steps < 1)) {
+                  unsigned int window, unsigned int stride, int max_steps, int poll_steps,
+                  void* mbox, void* stream) {
+  if (rows <= 0 || rows > 65535 || window == 0 || window >= (1u << 31) || stride < window ||
+      stride >= (1u << 31) || max_steps < 0 || (mbox != nullptr && poll_steps < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int total = 0;
@@ -352,7 +370,8 @@ int b2_run_launch(const void* params, const void* active, void* state, void* out
   RowState* row_state = reinterpret_cast<RowState*>(shared + 1);
   uint32_t* o = static_cast<uint32_t*>(out);
   uint32_t* mb = static_cast<uint32_t*>(mbox);
-  void* args[] = {&p, &a, &shared, &row_state, &o, &rows, &window, &max_steps, &poll_steps, &mb};
+  void* args[] = {&p,      &a,         &shared,     &row_state, &o, &rows,
+                  &window, &stride, &max_steps, &poll_steps, &mb};
   const dim3 grid(total / rows, rows);
   return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(b2_run_kernel), grid,
                                                       dim3(kThreads), args, 0,
@@ -360,10 +379,14 @@ int b2_run_launch(const void* params, const void* active, void* state, void* out
 }
 
 // A zeroed mailbox of `words` uint32 words in mapped pinned host memory:
-// *host for the launch thread, *dev for the kernel.
+// *host for the launch thread, *dev for the kernels of the current device.
+// Portable, so the pinning holds in every device's context; the caller keys
+// a mailbox by the device it was made on and hands it only to that
+// device's kernels.
 int b2_mailbox_alloc(int words, void** host, void** dev) {
   if (words <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaHostAlloc(host, static_cast<size_t>(words) * 4, cudaHostAllocMapped);
+  cudaError_t err = cudaHostAlloc(host, static_cast<size_t>(words) * 4,
+                                  cudaHostAllocPortable | cudaHostAllocMapped);
   if (err != cudaSuccess) return static_cast<int>(err);
   memset(*host, 0, static_cast<size_t>(words) * 4);
   err = cudaHostGetDevicePointer(dev, *host, 0);

@@ -13,10 +13,13 @@ Counterpart of ``tpu_dpow/ops/pallas_kernel.py`` and of the device loop of
     unused: the kernel exits early per warp.
   * ``cuda_search_run_batch`` and ``cuda_search_run_batch_controlled`` run
     ``run_loop_core``'s multi-window loop as one persistent cooperative
-    launch (``csrc/blake2b_run.cu``). The controlled launch polls its
-    control block through a mailbox in mapped pinned host memory: the
-    calling thread serves each poll through ``control.poll_slot`` until the
-    kernel has returned, exactly the polls ``io_callback`` would make.
+    launch (``csrc/blake2b_run.cu``), with windows of ``window`` nonces
+    whose bases advance by ``stride`` (the device fan's interleaved
+    windows; ``stride == window`` is the contiguous scan). The controlled
+    launch polls its control block through a mailbox in mapped pinned host
+    memory: the calling thread serves each poll through
+    ``control.poll_slot`` (as fan member ``dev``) until the kernel has
+    returned, exactly the polls ``io_callback`` would make.
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, started
@@ -60,12 +63,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_ABI_VERSION = 2
+# Interface version of each library (``b2_abi_version``): the run kernel's
+# launch took a stride in version 3.
+_ABI_VERSIONS = {"search": 2, "run": 3}
 
 # Kernel launches made through the wrappers below (the only place they move):
-# ``launches`` for the search kernel, ``run_launches`` for the persistent one.
+# ``launches`` for the search kernel, ``run_launches`` for the persistent one,
+# and of those ``run_strided_launches`` for its strided mode (stride > window).
 launches = 0
 run_launches = 0
+run_strided_launches = 0
 # Control polls the persistent kernel made, and their round trip as the
 # kernel's leader measured it (post of the request to sight of the answer),
 # and the host time launch threads slept while their kernel queued behind
@@ -157,7 +164,7 @@ def _bind_run(lib: ctypes.CDLL) -> None:
     lib.b2_run_blocks_per_row.restype = ctypes.c_int
     lib.b2_run_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.b2_run_launch.restype = ctypes.c_int
@@ -191,15 +198,15 @@ def load_libraries() -> Dict[str, ctypes.CDLL]:
             for name in missing:
                 lib = ctypes.CDLL(paths[name])
                 lib.b2_abi_version.restype = ctypes.c_int
-                if lib.b2_abi_version() != _ABI_VERSION:
+                if lib.b2_abi_version() != _ABI_VERSIONS[name]:
                     raise RuntimeError(
-                        f"{paths[name]}: ABI {lib.b2_abi_version()} != {_ABI_VERSION}"
+                        f"{paths[name]}: ABI {lib.b2_abi_version()} != {_ABI_VERSIONS[name]}"
                     )
                 lib.b2_error_string.argtypes = [ctypes.c_int]
                 lib.b2_error_string.restype = ctypes.c_char_p
                 _BINDERS[name](lib)
-                if name == "run":
-                    _prepare_mailboxes(lib)
+                if name == "run" and lib.b2_run_out_words(1) != 2 + _OUT_STATS:
+                    raise RuntimeError(f"{paths[name]}: out layout differs from the wrapper's")
                 _libs[name], _lib_paths[name] = lib, paths[name]
         return dict(_libs)
 
@@ -229,9 +236,9 @@ def library_path(name: str = "search") -> Optional[str]:
 
 def reset_launches() -> None:
     """Zero both kernels' launch counts and the poll statistics."""
-    global launches, run_launches
+    global launches, run_launches, run_strided_launches
     with _lock:
-        launches = run_launches = 0
+        launches = run_launches = run_strided_launches = 0
         run_poll_stats.update(polls=0, round_trip_ns=0, round_trip_ns_max=0, queued_ns=0,
                               queued_ns_max=0)
 
@@ -336,10 +343,11 @@ POLL_SPIN_US = 200
 # the GIL released instead of spinning, and the delay it adds to the
 # launch's first poll stays under this bound.
 QUEUED_SLEEP_MAX_S = 1e-3
-# Mailboxes made when the library loads, of this many rows each: enough for
-# the engine's launches (max_batch 16, pipeline 2) without a pinned
-# allocation while a kernel runs.
-_MAILBOX_ROWS, _MAILBOXES_AT_LOAD = 16, 2
+# Mailboxes pooled on each of a persistent engine's cards when it sets up
+# (prepare_mailboxes), of this many rows each: enough for the engine's
+# launches (max_batch 16, pipeline 2, a probe) without a pinned allocation
+# while a kernel runs.
+_MAILBOX_ROWS, _MAILBOXES_PER_CARD = 16, 3
 
 
 def _mailbox_words(rows: int) -> int:
@@ -347,13 +355,15 @@ def _mailbox_words(rows: int) -> int:
 
 
 class _Mailbox:
-    """One mapped pinned mailbox, for launches of up to ``rows`` rows."""
+    """One mapped pinned mailbox, for launches of up to ``rows`` rows on
+    CUDA device ``device`` (its device pointer is that device's)."""
 
-    def __init__(self, lib: ctypes.CDLL, rows: int):
-        self.rows = rows
+    def __init__(self, lib: ctypes.CDLL, rows: int, device: int):
+        self.rows, self.device = rows, device
         host, dev = ctypes.c_void_p(), ctypes.c_void_p()
         words = _mailbox_words(rows)
-        err = lib.b2_mailbox_alloc(words, ctypes.byref(host), ctypes.byref(dev))
+        with torch.cuda.device(device):
+            err = lib.b2_mailbox_alloc(words, ctypes.byref(host), ctypes.byref(dev))
         if err != 0:
             raise RuntimeError(
                 f"mailbox allocation failed: {lib.b2_error_string(err).decode()} ({err})"
@@ -366,32 +376,41 @@ class _Mailbox:
         return _MB_HEAD + (1 + control.CTRL_WORDS) * rows
 
 
-# Free mailboxes by capacity. Freeing pinned memory synchronizes the device,
-# which would stall a launch thread behind its successor's kernel, so
-# mailboxes are kept for reuse instead.
-_mailboxes: Dict[int, list] = {}
+# Free mailboxes by (device, capacity): a mailbox's device pointer is handed
+# only to kernels of the device it was made on. Freeing pinned memory
+# synchronizes the device, which would stall a launch thread behind its
+# successor's kernel, so mailboxes are kept for reuse instead.
+_mailboxes: Dict[tuple, list] = {}
 
 
-def _prepare_mailboxes(lib: ctypes.CDLL) -> None:
-    if lib.b2_run_out_words(1) != 2 + _OUT_STATS:
-        raise RuntimeError("run library's out layout differs from the wrapper's")
-    _mailboxes.setdefault(_MAILBOX_ROWS, []).extend(
-        _Mailbox(lib, _MAILBOX_ROWS) for _ in range(_MAILBOXES_AT_LOAD)
-    )
+def prepare_mailboxes(devices) -> None:
+    """Fill the free pool of each CUDA device in ``devices`` (torch.device
+    or index) up to _MAILBOXES_PER_CARD mailboxes. Only these cards are
+    touched: no other card gets a CUDA context. A launch on a card with an
+    empty pool allocates its mailbox itself (_take_mailbox)."""
+    lib = load_run_library()
+    for d in devices:
+        index = d if isinstance(d, int) else d.index
+        if index is None:
+            index = torch.cuda.current_device()
+        with _lock:
+            missing = _MAILBOXES_PER_CARD - len(_mailboxes.get((index, _MAILBOX_ROWS), ()))
+        for _ in range(missing):
+            _give_mailbox(_Mailbox(lib, _MAILBOX_ROWS, index))
 
 
-def _take_mailbox(lib: ctypes.CDLL, rows: int) -> _Mailbox:
+def _take_mailbox(lib: ctypes.CDLL, rows: int, device: int) -> _Mailbox:
     cap = max(_MAILBOX_ROWS, 1 << max(0, rows - 1).bit_length())
     with _lock:
-        free = _mailboxes.get(cap)
+        free = _mailboxes.get((device, cap))
         if free:
             return free.pop()
-    return _Mailbox(lib, cap)
+    return _Mailbox(lib, cap, device)
 
 
 def _give_mailbox(box: _Mailbox) -> None:
     with _lock:
-        _mailboxes.setdefault(box.rows, []).append(box)
+        _mailboxes.setdefault((box.device, box.rows), []).append(box)
 
 
 def _check_params(params_batch: torch.Tensor) -> None:
@@ -407,12 +426,22 @@ def _check_params(params_batch: torch.Tensor) -> None:
         raise ValueError("params must be contiguous")
 
 
-def _run_launch(params_batch, active, *, window, max_steps, poll_steps, out_ptr, mbox_dev):
-    """Enqueue one persistent launch on the current stream; returns the
-    stream. The kernel writes its out words at ``out_ptr``."""
-    global run_launches
+def _stride_for(window: int, stride: Optional[int]) -> int:
+    """The per-step base advance (None = ``window``: contiguous windows),
+    checked as the kernel checks it: window <= stride < 2^31."""
     if not 0 < window < 1 << 31:
         raise ValueError("per-step window must be in (0, 2^31) nonces")
+    stride = window if stride is None else int(stride)
+    if not window <= stride < 1 << 31:
+        raise ValueError(f"stride {stride} must be in [window {window}, 2^31)")
+    return stride
+
+
+def _run_launch(params_batch, active, *, window, stride, max_steps, poll_steps, out_ptr,
+                mbox_dev):
+    """Enqueue one persistent launch on the current stream; returns the
+    stream. The kernel writes its out words at ``out_ptr``."""
+    global run_launches, run_strided_launches
     if max_steps < 0:
         raise ValueError("max_steps must be >= 0")
     rows = params_batch.shape[0]
@@ -428,7 +457,7 @@ def _run_launch(params_batch, active, *, window, max_steps, poll_steps, out_ptr,
         stream = torch.cuda.current_stream(dev)
         err = lib.b2_run_launch(
             params_batch.data_ptr(), None if act is None else act.data_ptr(),
-            state.data_ptr(), out_ptr, rows, window, max_steps, poll_steps, mbox_dev,
+            state.data_ptr(), out_ptr, rows, window, stride, max_steps, poll_steps, mbox_dev,
             stream.cuda_stream,
         )
     if err != 0:
@@ -437,6 +466,7 @@ def _run_launch(params_batch, active, *, window, max_steps, poll_steps, out_ptr,
         )
     with _lock:
         run_launches += 1
+        run_strided_launches += stride != window
     return stream
 
 
@@ -446,37 +476,43 @@ def cuda_search_run_batch(
     *,
     window: int,
     max_steps: int,
+    stride: Optional[int] = None,
 ) -> tuple:
     """``run_loop_core`` without control as one persistent launch: up to
-    ``max_steps`` windows of ``window`` nonces per row → (lo, hi) int32[B]
-    bit views (on the card) of each row's absolute winning nonce, all-ones
-    where the span was dry or the row inactive. Returns without waiting for
-    the kernel. On a CPU tensor this is the plain version
-    (``ops/runloop.py``)."""
+    ``max_steps`` windows of ``window`` nonces per row, each window's base
+    ``stride`` past the last (None: ``window``, one contiguous scan) →
+    (lo, hi) int32[B] bit views (on the card) of each row's absolute
+    winning nonce, all-ones where the span was dry or the row inactive.
+    Returns without waiting for the kernel. On a CPU tensor this is the
+    plain version (``ops/runloop.py``)."""
+    stride = _stride_for(window, stride)
     if params_batch.device.type == "cpu":
         from . import runloop
 
         return runloop.run_loop_core(
             params_batch, active, launch=runloop.plain_launch(window),
-            window=window, max_steps=max_steps,
+            window=stride, max_steps=max_steps,
         )
     _check_params(params_batch)
     rows = params_batch.shape[0]
     out = torch.empty(2 * rows + _OUT_STATS, dtype=torch.int32, device=params_batch.device)
     if rows:
         _run_launch(
-            params_batch, active, window=window, max_steps=max_steps, poll_steps=0,
-            out_ptr=out.data_ptr(), mbox_dev=None,
+            params_batch, active, window=window, stride=stride, max_steps=max_steps,
+            poll_steps=0, out_ptr=out.data_ptr(), mbox_dev=None,
         )
     return out[:rows], out[rows:2 * rows]
 
 
 class _PollServer:
-    """Answers one launch's polls. Built before the launch, so the first
-    poll (k = 0, posted as soon as the kernel starts) does not wait for it."""
+    """Answers one launch's polls as fan member ``dev`` of control slot
+    ``slot`` (``control.poll_slot`` maps the member to its physical device
+    through the LaunchControl's fan map). Built before the launch, so the
+    first poll (k = 0, posted as soon as the kernel starts) does not wait
+    for it."""
 
-    def __init__(self, lib: ctypes.CDLL, box: _Mailbox, rows: int, slot: int):
-        self.lib, self.box, self.rows, self.slot = lib, box, rows, slot
+    def __init__(self, lib: ctypes.CDLL, box: _Mailbox, rows: int, slot: int, dev: int = 0):
+        self.lib, self.box, self.rows, self.slot, self.dev = lib, box, rows, slot, dev
         self.k = ctypes.c_uint()
         self.done = np.zeros(rows, dtype=np.uint8)
         self.cancel_all = np.zeros((rows, control.CTRL_WORDS), dtype=np.uint32)
@@ -484,7 +520,7 @@ class _PollServer:
 
     def _words(self) -> np.ndarray:
         words = np.ascontiguousarray(
-            control.poll_slot(self.slot, 0, self.k.value, self.done.astype(bool)),
+            control.poll_slot(self.slot, self.dev, self.k.value, self.done.astype(bool)),
             dtype=np.uint32,
         )
         if words.shape != self.cancel_all.shape:
@@ -537,21 +573,26 @@ def cuda_search_run_batch_controlled(
     window: int,
     max_steps: int,
     poll_steps: int,
+    stride: Optional[int] = None,
+    dev: int = 0,
 ) -> tuple:
     """The persistent launch with a live control channel: the kernel polls
     slot ``slot``'s control block (ops/control.py) every ``poll_steps``
-    windows and applies cancel, raise and rebase mid-launch. Blocks the
-    calling thread, serving the polls, until the kernel has returned, and
-    returns (lo, hi) int32[B] bit views as :func:`cuda_search_run_batch`
-    does, but on the host (read from the mailbox, see above). On a CPU
-    tensor this is the plain version (``ops/runloop.py``)."""
+    windows, as fan member ``dev`` of it, and applies cancel, raise and
+    rebase mid-launch; windows advance by ``stride`` as in
+    :func:`cuda_search_run_batch`. Blocks the calling thread, serving the
+    polls, until the kernel has returned, and returns (lo, hi) int32[B] bit
+    views as :func:`cuda_search_run_batch` does, but on the host (read from
+    the mailbox, see above). On a CPU tensor this is the plain version
+    (``ops/runloop.py``)."""
+    stride = _stride_for(window, stride)
     if params_batch.device.type == "cpu":
         from . import runloop
 
         return runloop.run_loop_core(
             params_batch, active, launch=runloop.plain_launch(window),
-            window=window, max_steps=max_steps,
-            control_poll=runloop.make_control_poll(slot), poll_steps=poll_steps,
+            window=stride, max_steps=max_steps,
+            control_poll=runloop.make_control_poll(slot, dev=dev), poll_steps=poll_steps,
         )
     _check_params(params_batch)
     if poll_steps < 1:
@@ -561,15 +602,18 @@ def cuda_search_run_batch_controlled(
         empty = torch.empty(0, dtype=torch.int32)
         return empty, empty.clone()
     lib = load_run_library()
-    box = _take_mailbox(lib, rows)
+    device = params_batch.device.index
+    if device is None:
+        device = torch.cuda.current_device()
+    box = _take_mailbox(lib, rows, device)
     lib.b2_mailbox_reset(box.host)
-    server = _PollServer(lib, box, rows, int(slot))
+    server = _PollServer(lib, box, rows, int(slot), int(dev))
     with torch.cuda.device(params_batch.device):
         started, finished = torch.cuda.Event(), torch.cuda.Event()
         started.record(torch.cuda.current_stream(params_batch.device))
     base = box.out_offset(rows)
     stream = _run_launch(
-        params_batch, active, window=window, max_steps=max_steps,
+        params_batch, active, window=window, stride=stride, max_steps=max_steps,
         poll_steps=poll_steps, out_ptr=box.dev + 4 * base, mbox_dev=box.dev,
     )
     finished.record(stream)

@@ -9,9 +9,13 @@ set it is the PERSISTENT flavor: at the start of every block of
 and applies cancel, raise and rebase as the reference loop does.
 
 ``search_run_batch`` and ``search_run_batch_controlled`` keep the JAX
-signatures (``kernel=`` and ``interpret=`` dropped): a CUDA tensor goes to
-the persistent CUDA kernel (ops/cuda_kernel.py, ``csrc/blake2b_run.cu``), a
-CPU tensor to the plain version. The plain version is what the engine runs
+signatures (``kernel=`` and ``interpret=`` dropped) and add ``stride=``:
+each window's base lies ``stride`` past the last one's (default: the
+window, one contiguous scan), the interleaved windows a device of the fan
+scans (parallel/fan_search.py). A CUDA tensor goes to the persistent CUDA
+kernel (ops/cuda_kernel.py, ``csrc/blake2b_run.cu``), a CPU tensor to the
+plain version, ``run_loop_core(launch=plain_launch(window),
+window=stride)``. The plain version is what the engine runs
 on the CPU and what the tests and ``chip_smoke.py`` hold the kernel against;
 nothing on the path falls back to it when a card is present.
 
@@ -150,13 +154,15 @@ def search_run_batch(
     iters: int = cuda_kernel.DEFAULT_ITERS,
     nblocks: int = 1,
     group: int = 1,
+    stride: Optional[int] = None,
 ) -> tuple:
     """Scan up to ``max_steps`` windows per row in ONE launch → (lo, hi)
     int32[B] bit views of each row's absolute winning nonce, or all-ones.
-    The per-row window is ``sublanes * 128 * iters * nblocks`` nonces."""
+    The per-row window is ``sublanes * 128 * iters * nblocks`` nonces, and
+    window k starts ``k * stride`` past the row's base (None: the window)."""
     window = cuda_kernel.window(sublanes, iters, nblocks, group)
     return cuda_kernel.cuda_search_run_batch(
-        params_batch, active, window=window, max_steps=max_steps
+        params_batch, active, window=window, max_steps=max_steps, stride=stride
     )
 
 
@@ -171,6 +177,7 @@ def search_run_batch_controlled(
     iters: int = cuda_kernel.DEFAULT_ITERS,
     nblocks: int = 1,
     group: int = 1,
+    stride: Optional[int] = None,
 ) -> tuple:
     """:func:`search_run_batch` with a live control channel: the launch
     polls slot ``slot``'s control block every ``poll_steps`` windows and
@@ -179,5 +186,5 @@ def search_run_batch_controlled(
     window = cuda_kernel.window(sublanes, iters, nblocks, group)
     return cuda_kernel.cuda_search_run_batch_controlled(
         params_batch, active, int(slot), window=window, max_steps=max_steps,
-        poll_steps=poll_steps,
+        poll_steps=poll_steps, stride=stride,
     )
