@@ -2,15 +2,17 @@
 
 * Importing ``tpu_dpow_torch`` and every submodule loads neither ``jax`` nor
   any module of ``tpu_dpow`` (checked in a fresh interpreter), the device
-  fan, the chaos seam, the fault domains and the logging helper included.
+  fan, the mesh gang, the multi-host layout, the chaos seam, the fault
+  domains, the logging helper, the worker client, the transport and the
+  tracer included; ``python -m tpu_dpow_torch.client --help`` exits 0.
 * The kernel's arithmetic header (``ops/csrc/blake2b_search.cuh``), built for
   the host with ``g++``, gives hashlib's work values.
 * ``chip_smoke.py`` fails, and prints no result, where no card is visible.
 * On a card (marker ``cuda``, skipped here): each kernel equals its plain
   version bit for bit — the persistent run kernel with and without a
   scripted control channel, its LaunchControl bookkeeping included, and with
-  strided windows — each launch moves its counter by one, and the fan
-  functions over every visible card equal their plain versions.
+  strided windows — each launch moves its counter by one, and the fan and
+  mesh functions over every visible card equal their plain versions.
 """
 
 import ctypes
@@ -57,7 +59,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "need = {'tpu_dpow_torch.parallel', 'tpu_dpow_torch.parallel.fan_search',\n"
         "        'tpu_dpow_torch.chaos', 'tpu_dpow_torch.chaos.device',\n"
         "        'tpu_dpow_torch.resilience.devfault', 'tpu_dpow_torch.resilience.breaker',\n"
-        "        'tpu_dpow_torch.utils.logging'}\n"
+        "        'tpu_dpow_torch.utils.logging', 'tpu_dpow_torch.parallel.mesh_search',\n"
+        "        'tpu_dpow_torch.parallel.multihost', 'tpu_dpow_torch.client',\n"
+        "        'tpu_dpow_torch.client.__main__', 'tpu_dpow_torch.client.app',\n"
+        "        'tpu_dpow_torch.transport', 'tpu_dpow_torch.transport.tcp',\n"
+        "        'tpu_dpow_torch.transport.wire', 'tpu_dpow_torch.obs.prom',\n"
+        "        'tpu_dpow_torch.obs.trace'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -69,6 +76,16 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     count, missing, bad = out.stdout.strip().split(" ", 2)
     assert int(count) >= 10  # every module of the slice was imported
     assert missing == "[]" and bad == "[]"
+
+
+def test_client_entry_point_help_exits_zero():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_dpow_torch.client", "--help"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "--mesh_devices" in out.stdout and "--device" in out.stdout
 
 
 def test_cuh_host_build_matches_hashlib(tmp_path):
@@ -350,3 +367,32 @@ def test_fan_functions_match_plain_on_the_cards():
         rows, np.stack([search.offsets_to_numpy(p[0]) for p in plain]),
         np.stack([search.offsets_to_numpy(p[1]) for p in plain]))
     assert np.array_equal(lo, want_lo) and np.array_equal(hi, want_hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch_shards", [1, 2, 4])
+def test_mesh_functions_match_plain_on_the_cards(batch_shards):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the mesh's kernel has no CPU mode")
+    from tpu_dpow_torch.parallel import fan_search, mesh_search
+
+    devs = fan_search.fan_devices(-1, "cuda")
+    if len(devs) % batch_shards:
+        pytest.skip(f"{batch_shards} batch shards do not divide {len(devs)} cards")
+    mesh = mesh_search.make_mesh(devs, batch_shards=batch_shards)
+    window = cuda_kernel.window(8, 16)
+    plain = mesh_search.make_mesh([torch.device("cpu")] * len(devs), batch_shards=batch_shards)
+    rows = np.concatenate([seeded_rows(), seeded_rows()[1:2]])  # 8 rows: every split
+    before = cuda_kernel.launches
+    got = mesh_search.sharded_search_chunk_batch(rows, mesh=mesh, chunk_per_shard=window,
+                                                 sublanes=8, iters=16)
+    assert cuda_kernel.launches == before + len(devs)
+    want = mesh_search.sharded_search_chunk_batch(rows, mesh=plain, chunk_per_shard=window)
+    assert np.array_equal(got, want)
+    active = np.arange(rows.shape[0]) % 3 != 2
+    for act in (None, active):
+        lo, hi = mesh_search.sharded_search_run(rows, act, mesh=mesh, chunk_per_shard=window,
+                                                max_steps=5, sublanes=8, iters=16)
+        wlo, whi = mesh_search.sharded_search_run(rows, act, mesh=plain, chunk_per_shard=window,
+                                                  max_steps=5)
+        assert np.array_equal(lo, wlo) and np.array_equal(hi, whi)

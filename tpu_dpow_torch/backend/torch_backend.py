@@ -14,9 +14,10 @@ and the fan in parallel/:
     a launch already in flight finishes and its result is discarded.
   * Run length adapts to difficulty: a launch covers up to ``run_steps``
     consecutive windows (the kernel's span is ``nblocks * steps`` windows),
-    quantized on a x4 ladder. Jobs are grouped into difficulty rungs served
-    round-robin, each launch as wide as its rung wants; launches queued
-    behind another one are capped at ``shared_steps_cap`` windows.
+    quantized on a x4 ladder (x2 with ``step_ladder="x2"``). Jobs are
+    grouped into difficulty rungs served round-robin, each launch as wide
+    as its rung wants; launches queued behind another one are capped at
+    ``shared_steps_cap`` windows.
   * Launch pipelining (``pipeline``, default 2) keeps a second launch in
     flight while the first's results are read back. Jobs advance their base
     speculatively at dispatch, so consecutive launches scan disjoint spans,
@@ -35,6 +36,12 @@ and the fan in parallel/:
     launch runs one member launch per device, and the host elects the
     winner and attributes it to the device whose sub-range produced it
     (per-device scan clocks, EMA, the ``dpow_backend_device_*`` families).
+  * ``mesh_devices=N`` (the mesh GANG, parallel/mesh_search.py): every
+    launch is one ganged launch over a (batch, nonce) mesh of N devices —
+    each member scans its sub-range of every row's window, the host elects
+    the lowest global offset — with ONE logical frontier per job (no
+    per-device bases or attribution; one fault domain for the gang).
+    Chunked mode only, as in the JAX engine.
   * Device fault domains (resilience/devfault.py): a watchdog on the
     injectable clock reads each device's progress from the control
     channel's poll bookkeeping; a device that misses its deadline is
@@ -72,7 +79,7 @@ from .. import obs
 from ..models import WorkRequest
 from ..ops import control as ctl
 from ..ops import cuda_kernel, runloop, search
-from ..parallel import fan_search
+from ..parallel import fan_search, mesh_search
 from ..resilience.clock import Clock, SystemClock
 from ..resilience.devfault import (
     DEADLINE_SLACK,
@@ -139,6 +146,7 @@ class _Job:
     epoch: int = 0
     # P(no launch currently in flight solves this job); 1.0 = uncovered.
     inflight_miss: float = 1.0
+    packed: bool = False  # included in a launch yet (the trace's 'pack' mark)
     # Device fan: per-device shard state, by PHYSICAL device index.
     dev_bases: "Optional[list]" = None  # split policy: per-device next base
     dev_scanned: "Optional[list]" = None  # nonces scanned per device (this job)
@@ -203,8 +211,9 @@ class _Launch:
 
 
 class TorchWorkBackend(WorkBackend):
-    """Batched nonce search on one GPU, fanned over several (``devices=``),
-    or, if asked, on the CPU."""
+    """Batched nonce search on one GPU, fanned over several (``devices=``)
+    or ganged over a mesh of them (``mesh_devices=``), or, if asked, on the
+    CPU."""
 
     def __init__(
         self,
@@ -221,12 +230,15 @@ class TorchWorkBackend(WorkBackend):
         control_poll_steps: int = 0,  # persistent: windows between polls (0 = auto)
         persistent_steps: Optional[int] = None,  # persistent: windows per launch
         clock: Optional[Clock] = None,  # control stamps, scan clocks, watchdog
+        mesh_devices: int = 0,  # >=1: gang this many devices per hash (the mesh)
         devices: int = 0,  # fan: 0 = one device, -1 = every visible, N = first N
         device_shard: str = "split",  # fan partition policy: 'split' | 'interleave'
         launch_timeout: Optional[float] = None,  # s; None = auto (300 on the card)
         device_suspect_after: float = 0.0,  # s without device progress (0 = auto)
         device_probe_interval: float = 30.0,  # s between re-admission probes
         close_join_timeout: float = 5.0,  # s close() waits for launch threads
+        step_ladder: str = "x4",  # run-length quantization: 'x4' | 'x2'
+        shared_steps_cap: Optional[int] = None,  # windows/launch under contention
     ):
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda":
@@ -239,11 +251,29 @@ class TorchWorkBackend(WorkBackend):
                 dev = torch.device("cuda", torch.cuda.current_device())
         elif dev.type != "cpu":
             raise WorkError(f"device must be cuda or cpu, not {dev}")
+        if devices and mesh_devices >= 1:
+            raise WorkError(
+                "devices (device fan) and mesh_devices (mesh gang) are "
+                "mutually exclusive — pick one multi-device path"
+            )
         if device_shard not in ("split", "interleave"):
             raise WorkError(
                 f"device_shard must be 'split' or 'interleave', not {device_shard!r}"
             )
         self.device_shard = device_shard
+        # The mesh gang (mesh_devices >= 1), INCLUDING 1: a one-device mesh
+        # runs the exact gang code, the A/B configuration that prices the
+        # gang machinery against the plain path.
+        self.mesh: "Optional[mesh_search.Mesh]" = None
+        if mesh_devices >= 1:
+            local = fan_search.fan_devices(-1, dev.type)
+            if len(local) < mesh_devices:
+                raise WorkError(
+                    f"mesh_devices={mesh_devices} but only {len(local)} "
+                    "local devices visible"
+                )
+            self.mesh = mesh_search.make_mesh(local[:mesh_devices])
+            dev = local[0]
         # The fan (devices != 0): -1 takes every visible device of the
         # type, N the first N, 1 included (the A/B that prices the fan's
         # machinery against the plain path). More than are visible raises.
@@ -267,13 +297,15 @@ class TorchWorkBackend(WorkBackend):
             )
         except ValueError as e:
             raise WorkError(str(e)) from e
-        # Global per-step window: the fan multiplies the per-device window
-        # by its width; one logical frontier advances by the global chunk.
-        self.chunk = self.chunk_per_shard * (len(self.fan) if self.fan else 1)
+        # Global per-step window: every gang flavor (mesh, fan) multiplies
+        # the per-device window by its width; one logical frontier advances
+        # by the global chunk.
+        gang_width = mesh_devices if self.mesh else (len(self.fan) if self.fan else 1)
+        self.chunk = self.chunk_per_shard * gang_width
         if self.chunk >= 1 << 31:
             raise WorkError(
                 f"per-dispatch window {self.chunk} nonces (sublanes*128*iters"
-                f"*nblocks*devices) must stay below 2^31"
+                f"*nblocks*mesh_devices) must stay below 2^31"
             )
         # One launch may widen to run_steps consecutive windows; the cap
         # bounds cancel latency (a launch cannot be interrupted) and keeps
@@ -292,6 +324,14 @@ class TorchWorkBackend(WorkBackend):
             raise WorkError(
                 f"run_mode must be 'chunked' or 'persistent', not {run_mode!r}"
             )
+        if run_mode == "persistent" and self.mesh is not None:
+            # Refused as the JAX engine refuses it: there the gang is one
+            # SPMD program whose replicated control poll can diverge across
+            # devices. Persistent multi-device search is the fan's.
+            raise WorkError(
+                "run_mode=persistent cannot drive the mesh gang: use "
+                "devices=N (the device fan) for persistent multi-device search"
+            )
         self.run_mode = run_mode
         if control_poll_steps < 0:
             raise WorkError("control_poll_steps must be >= 0 (0 = auto)")
@@ -306,11 +346,16 @@ class TorchWorkBackend(WorkBackend):
         self._clock = clock or SystemClock()
         self.max_batch = max_batch
         self.pipeline = max(1, pipeline)
+        if step_ladder not in ("x4", "x2"):
+            raise WorkError(f"step_ladder must be 'x4' or 'x2', not {step_ladder!r}")
+        self.step_ladder = step_ladder
         # Launches that run behind another one (pipelined successors,
         # speculation, or any launch while another rung has demand) buy no
         # latency with width; capping them bounds how long fresh arrivals
         # and cancels wait behind someone else's scan.
-        self.shared_steps_cap = max(1, self.run_steps // 4)
+        if shared_steps_cap is None:
+            shared_steps_cap = max(1, self.run_steps // 4)
+        self.shared_steps_cap = max(1, min(shared_steps_cap, self.run_steps))
         # A launch that never returns (a wedged card) fails the engine with a
         # WorkError after launch_timeout instead of hanging its waiters.
         if launch_timeout is None:
@@ -333,6 +378,7 @@ class TorchWorkBackend(WorkBackend):
         self._closed = False
         self.total_hashes = 0
         self.total_solutions = 0
+        self._tracer = obs.get_tracer()
         # Persistent-mode families, named as the JAX engine's: launch
         # length, control-channel traffic and poll-to-effect latency.
         reg = obs.get_registry()
@@ -1017,14 +1063,17 @@ class TorchWorkBackend(WorkBackend):
 
     def _step_counts(self) -> list:
         """The quantized run lengths the engine may emit (ascending):
-        powers of four up to run_steps. Persistent mode has one steerable
+        powers of four up to run_steps (of two with ``step_ladder="x2"``:
+        base difficulty then launches 2 windows instead of 4, less span to
+        drain past the hit). Persistent mode has one steerable
         span-sized rung (plus the singleton the self-test uses): the loop's
         early exit makes run-length quantization pointless."""
         if self.run_mode == "persistent":
             return [1, self.persistent_steps] if self.persistent_steps > 1 else [1]
+        factor = 2 if self.step_ladder == "x2" else 4
         counts, steps = [1], 1
         while steps < self.run_steps:
-            steps = min(steps * 4, self.run_steps)
+            steps = min(steps * factor, self.run_steps)
             counts.append(steps)
         return counts
 
@@ -1125,6 +1174,14 @@ class TorchWorkBackend(WorkBackend):
             sublanes=self.sublanes, iters=self.iters,
             nblocks=self.nblocks * steps, group=self.group,
         )
+        if self.mesh is not None:
+            # One ganged launch: every member scans chunk_per_shard * steps
+            # nonces of each row, the host elects the lowest global offset.
+            offs = mesh_search.sharded_search_chunk_batch(
+                params_batch, mesh=self.mesh, chunk_per_shard=self.chunk_per_shard * steps,
+                streams=self._member_streams(list(self.mesh.devices.flat)), **kwargs,
+            )
+            return self._offsets_to_nonces(params_batch, offs)
         if self.device.type == "cuda":
             with torch.cuda.stream(self._stream(self.device)):
                 params = search.params_from_numpy(params_batch, self.device)
@@ -1490,6 +1547,10 @@ class TorchWorkBackend(WorkBackend):
             thread_done=thread_done,
         )
         span_dev = self.chunk_per_shard * steps
+        for job in active:
+            if not job.packed:
+                job.packed = True
+                self._tracer.mark_hash(job.block_hash, "pack")
         for job, f in zip(active, factors):
             if self.fan is not None:
                 self._fan_advance(job, span_dev)
@@ -1542,6 +1603,7 @@ class TorchWorkBackend(WorkBackend):
     def _record_solve(self, job: _Job, work: str) -> None:
         """Shared per-solve bookkeeping (plain and fan apply paths)."""
         self.total_solutions += 1
+        self._tracer.mark_hash(job.block_hash, "device")
         # Persistent successors still scanning the solved job exit within
         # one poll interval instead of grinding on.
         self._control_cancel_job(job)

@@ -1,0 +1,320 @@
+"""WorkHandler: queue discipline between the transport and the compute engine.
+
+Semantic port of the reference's dispatch boundary (reference
+client/work_handler.py) minus its one-item-at-a-time HTTP dialogue:
+
+  * dedup on enqueue against both the queue and ongoing work
+    (reference :84-89);
+  * RANDOM pop order — the swarm-decorrelation property the reference gets
+    from random queue popping (reference :29-33): two workers with the same
+    backlog won't grind it in the same order;
+  * ``concurrency`` items in flight at once — the reference is forced to 1
+    by its blocking work-server dialogue; the GPU engine batches in-flight
+    requests into one device launch, so the handler keeps several going;
+  * cancel-vs-completion race: a cancel for an in-queue item just removes
+    it; for an ongoing item it reaches into the backend; a result arriving
+    for a hash no longer in ``ongoing`` is dropped (reference :61-80,
+    109-114);
+  * also fixes the reference's latent NameError in its enqueue error path
+    (reference work_handler.py:95 references an undefined variable).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import random
+import traceback
+from dataclasses import replace
+from typing import Awaitable, Callable, Dict, Optional, Set
+
+from .. import obs
+from ..backend import WorkBackend, WorkCancelled, WorkError
+from ..models import WorkRequest
+from ..utils.logging import get_logger
+
+logger = get_logger("tpu_dpow_torch.client")
+
+ResultCallback = Callable[[WorkRequest, str], Awaitable[None]]
+
+
+class WorkQueue:
+    """Async queue with membership tests and random pop (reference :9-36).
+
+    Backed by a hash→request dict plus a swap-with-last index over the
+    hashes, so every operation the enqueue-dedup hot path runs
+    (``__contains__``/``get``/``replace``) — and removal itself — is O(1).
+    The previous list-scan implementation was O(n) per duplicate work
+    message, i.e. O(n²) when a republishing server re-announces into a
+    deep backlog. Random pop order is preserved: the index is an unordered
+    set-with-choice, swap-with-last keeps no positional meaning.
+    """
+
+    def __init__(self):
+        self._items: Dict[str, WorkRequest] = {}  # hash → queued request
+        self._order: list = []  # hashes, arbitrary order (random pop)
+        self._index: Dict[str, int] = {}  # hash → its slot in _order
+        self._waiter: asyncio.Event = asyncio.Event()
+
+    def __contains__(self, block_hash: str) -> bool:
+        return block_hash in self._items
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+    def put(self, request: WorkRequest) -> None:
+        block_hash = request.block_hash
+        if block_hash not in self._items:
+            self._index[block_hash] = len(self._order)
+            self._order.append(block_hash)
+        self._items[block_hash] = request
+        self._waiter.set()
+
+    def _pop_hash(self, block_hash: str) -> WorkRequest:
+        """Drop a known-present hash in O(1): swap its slot with the last."""
+        i = self._index.pop(block_hash)
+        last = self._order.pop()
+        if last != block_hash:
+            self._order[i] = last
+            self._index[last] = i
+        return self._items.pop(block_hash)
+
+    def remove(self, block_hash: str) -> bool:
+        if block_hash not in self._items:
+            return False
+        self._pop_hash(block_hash)
+        return True
+
+    def get(self, block_hash: str) -> Optional[WorkRequest]:
+        return self._items.get(block_hash)
+
+    def replace(self, request: WorkRequest) -> bool:
+        """Swap the queued entry for this hash in place (same queue slot)."""
+        if request.block_hash not in self._items:
+            return False
+        self._items[request.block_hash] = request
+        return True
+
+    async def pop_random(self) -> WorkRequest:
+        while not self._order:
+            self._waiter.clear()
+            await self._waiter.wait()
+        return self._pop_hash(self._order[random.randrange(len(self._order))])
+
+
+class _OngoingJob:
+    """Mutable holder giving one worker-loop job a STABLE identity.
+
+    A raised duplicate relabels the job's request in place (same holder),
+    so every ongoing-map access can be identity-guarded against the holder
+    the worker installed. Guarding against the WorkRequest itself would
+    break one way or the other: requests are frozen (a relabel must swap
+    objects), and an unguarded pop in a worker's exception path can delete
+    a DIFFERENT worker's entry for the same hash — cancel pops the entry,
+    a re-enqueued duplicate starts on another worker, then the first
+    worker's WorkCancelled lands and would blow away the new job, whose
+    eventual result gets dropped as "completed after cancel".
+    """
+
+    __slots__ = ("request",)
+
+    def __init__(self, request: WorkRequest):
+        self.request = request
+
+
+class WorkHandler:
+    def __init__(
+        self,
+        backend: WorkBackend,
+        result_callback: ResultCallback,
+        *,
+        concurrency: int = 8,
+    ):
+        self.backend = backend
+        self.result_callback = result_callback
+        self.concurrency = concurrency
+        self.queue = WorkQueue()
+        self.ongoing: Dict[str, _OngoingJob] = {}
+        self._workers: list = []
+        self._started = False
+        self.stats = {"queued": 0, "deduped": 0, "solved": 0, "cancelled": 0,
+                      "errors": 0, "recovered": 0}
+        # Registry mirrors of the stats dict plus the two depth gauges the
+        # dict cannot express (current queue/ongoing, not lifetime counts).
+        reg = obs.get_registry()
+        self._m_events = reg.counter(
+            "dpow_client_work_total",
+            "Work-handler lifecycle events (queued/deduped/solved/"
+            "cancelled/errors/recovered)", ("event",))
+        self._m_queue_depth = reg.gauge(
+            "dpow_client_queue_depth", "Work items waiting for a worker slot")
+        self._m_ongoing = reg.gauge(
+            "dpow_client_ongoing", "Work items currently in the engine")
+
+    def _bump(self, event: str) -> None:
+        self.stats[event] += 1
+        self._m_events.inc(1, event)
+        self._m_queue_depth.set(len(self.queue))
+        self._m_ongoing.set(len(self.ongoing))
+
+    async def start(self) -> None:
+        # Startup probe: a broken engine must fail loudly before the client
+        # joins the swarm (reference :50-55's invalid-action probe analog).
+        await self.backend.setup()
+        self._workers = [
+            asyncio.ensure_future(self._worker_loop()) for _ in range(self.concurrency)
+        ]
+        self._started = True
+
+    async def stop(self) -> None:
+        self._started = False
+        for w in self._workers:
+            w.cancel()
+        await asyncio.gather(*self._workers, return_exceptions=True)
+        self._workers = []
+        await self.backend.close()
+
+    async def queue_work(self, request: WorkRequest) -> None:
+        """Enqueue unless already queued or ongoing (reference :83-94).
+
+        A duplicate carrying a HIGHER difficulty is not just noise — it is
+        the server re-dispatching a precached hash on-demand at a raised
+        multiplier (server/app.py _dispatch_ondemand). Dropping it would
+        leave the running job solving at the old target and the eventual
+        result rejected server-side; instead the raise is threaded through:
+        a queued entry is swapped for the harder request; an ongoing one is
+        retargeted in place via backend.raise_difficulty, falling back to
+        cancel + re-enqueue for engines that cannot retarget (external
+        nano-work-server; a job that just finished at the weak target).
+        """
+        bh = request.block_hash
+        job = self.ongoing.get(bh)
+        if job is not None:
+            if request.difficulty > job.request.difficulty:
+                if await self.backend.raise_difficulty(bh, request.difficulty):
+                    if (
+                        request.nonce_range is not None
+                        and request.nonce_range != job.request.nonce_range
+                        and not await self.backend.cover_range(
+                            bh, request.nonce_range
+                        )
+                    ):
+                        # A raised re-target may also re-shard (the server
+                        # re-plans at the new difficulty). If the engine
+                        # could not rebase, the job must keep its OLD range
+                        # label — recording the new one would make future
+                        # re-publishes of that shard dedup as "already
+                        # covered" while nothing scans it.
+                        request = replace(
+                            request, nonce_range=job.request.nonce_range
+                        )
+                    # The awaits may have yielded; only relabel if the SAME
+                    # job is still ongoing — writing after the worker loop
+                    # popped it would mislabel a successor job.
+                    if self.ongoing.get(bh) is job:
+                        job.request = request  # report under the raise
+                else:
+                    await self.queue_cancel(bh)
+                    self.queue.put(request)
+                    self._bump("queued")
+                    return
+            elif (
+                request.nonce_range is not None
+                and request.nonce_range != job.request.nonce_range
+            ):
+                # Fleet re-cover (docs/fleet.md): a duplicate carrying a
+                # DIFFERENT shard means the server handed us a dead
+                # worker's range for the hash we are already scanning.
+                # Rebase the running job onto the orphaned shard; engines
+                # that cannot rebase drop the hint (their scan is already
+                # correct, just not where the server asked).
+                if await self.backend.cover_range(bh, request.nonce_range):
+                    if self.ongoing.get(bh) is job:
+                        job.request = request
+                    self._bump("recovered")
+                    return
+            self._bump("deduped")
+            return
+        queued = self.queue.get(bh)
+        if queued is not None:
+            if request.difficulty > queued.difficulty:
+                self.queue.replace(request)
+                logger.debug("raised queued difficulty for %s", bh)
+                self._bump("deduped")
+            elif (
+                request.nonce_range is not None
+                and request.nonce_range != queued.nonce_range
+            ):
+                # Re-cover before the job even started (all worker slots
+                # busy): take the new shard in place — nothing has scanned
+                # the old one yet, and the server's cover table already
+                # records us on the new range. Symmetric with the
+                # ongoing-job rebase above.
+                self.queue.replace(request)
+                self._bump("recovered")
+            else:
+                self._bump("deduped")
+            return
+        self.queue.put(request)
+        self._bump("queued")
+
+    async def queue_cancel(self, block_hash: str) -> None:
+        """Cancel queued or ongoing work for a hash (reference :61-80)."""
+        if self.queue.remove(block_hash):
+            logger.debug("removed queued work %s", block_hash)
+            self._bump("cancelled")
+            return
+        if block_hash in self.ongoing:
+            # Drop from ongoing FIRST: if the backend solves it in the same
+            # instant, the completion sees it missing and discards
+            # (reference :71-74, 109-114).
+            self.ongoing.pop(block_hash, None)
+            self._bump("cancelled")
+            try:
+                await self.backend.cancel(block_hash)
+            except Exception as e:
+                logger.warning("backend cancel failed for %s: %s", block_hash, e)
+
+    def _drop_own(self, bh: str, job: _OngoingJob) -> None:
+        """Remove OUR job's entry only: after a cancel popped it, a
+        re-enqueued duplicate may already be running on another worker
+        under the same hash — its entry is not ours to delete."""
+        if self.ongoing.get(bh) is job:
+            del self.ongoing[bh]
+
+    async def _worker_loop(self) -> None:
+        while True:
+            request = await self.queue.pop_random()
+            bh = request.block_hash
+            job = _OngoingJob(request)
+            self.ongoing[bh] = job
+            try:
+                work = await self.backend.generate(request)
+            except WorkCancelled:
+                self._drop_own(bh, job)
+                continue
+            except WorkError as e:
+                self._drop_own(bh, job)
+                self._bump("errors")
+                logger.error("work generation failed for %s: %s", bh, e)
+                continue
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                self._drop_own(bh, job)
+                self._bump("errors")
+                logger.error("unexpected backend failure:\n%s", traceback.format_exc())
+                continue
+            # Completion/cancel race: only report if OUR job is still the
+            # ongoing entry (a cancel may have popped it — and a successor
+            # may occupy the hash now). The job's CURRENT request, not the
+            # popped-at-dispatch one, is what gets reported — a duplicate
+            # may have raised its difficulty while the job was in flight.
+            if self.ongoing.get(bh) is not job:
+                logger.debug("work %s completed after cancel; dropped", bh)
+                continue
+            del self.ongoing[bh]
+            self._bump("solved")
+            try:
+                await self.result_callback(job.request, work)
+            except Exception:
+                logger.error("result callback failed:\n%s", traceback.format_exc())

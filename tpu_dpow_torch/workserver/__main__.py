@@ -1,8 +1,9 @@
-"""``python -m tpu_dpow_torch.workserver [--listen 127.0.0.1:7000] [--device cuda]``
+"""``python -m tpu_dpow_torch.workserver [--listen 127.0.0.1:7000] [--device cuda] [--mesh_devices N]``
 
 Drop-in replacement for the reference's vendored nano-work-server binary
 (``nano-work-server --gpu 0:0 -l 127.0.0.1:7000``): the same HTTP JSON-RPC
-surface, with the work computed by the CUDA kernel on one GPU.
+surface, with the work computed by the CUDA kernel on one GPU, or ganged
+over a mesh of N (``--mesh_devices``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import asyncio
 import logging
 
 from ..backend import get_backend
+from ..utils import maybe_init_distributed
 from . import WorkServer
 
 
@@ -20,17 +22,22 @@ async def amain(argv=None) -> None:
     p.add_argument("--listen", "-l", default="127.0.0.1:7000", help="host:port")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N, or cpu (plain PyTorch search)")
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="gang N local devices per hash; 0 = plain "
+                   "single-device path")
     p.add_argument("--verbose", action="store_true")
     ns = p.parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if ns.verbose else logging.INFO)
+    maybe_init_distributed()
 
     host, _, port_str = ns.listen.rpartition(":")
     if not port_str.isdigit():
         p.error(f"--listen must be host:port, got {ns.listen!r}")
     # IPv6 literals arrive bracketed ('[::1]:7000'); getaddrinfo wants them bare.
     host = host.strip("[]")
+    kwargs = {"mesh_devices": ns.mesh_devices} if ns.mesh_devices > 0 else {}
     server = WorkServer(
-        get_backend("torch", device=ns.device), host or "127.0.0.1", int(port_str)
+        get_backend("torch", device=ns.device, **kwargs), host or "127.0.0.1", int(port_str)
     )
     await server.start()
     try:
