@@ -1,1 +1,1 @@
-from .work import WorkType, WorkRequest, WorkResult  # noqa: F401
+from .work import WorkType, WorkRequest, WorkResult, DifficultyModel  # noqa: F401

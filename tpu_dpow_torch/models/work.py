@@ -1,9 +1,8 @@
 """Domain model for proof-of-work requests flowing through the engine.
 
 Counterpart of ``tpu_dpow/models/work.py``: the request and result types
-the backend and the work server pass around. The server-side difficulty
-policy (``DifficultyModel``) stays with the JAX package's server stack,
-which this slice does not port.
+the backend, the work server and the hub pass around, and the hub's
+difficulty policy (``DifficultyModel``).
 """
 
 from __future__ import annotations
@@ -82,3 +81,54 @@ class WorkResult:
 
     def validate(self, difficulty: int) -> None:
         nc.validate_work(self.block_hash, self.work, difficulty)
+
+
+@dataclass
+class DifficultyModel:
+    """Server-side difficulty policy.
+
+    Unlike the reference — which ships with FORCE_ONLY_BASE_DIFFICULTY=True,
+    neutering its own multiplier subsystem (reference dpow_server.py:39-40,
+    273-282, "some outstanding bugs") — multipliers here are first-class.
+    """
+
+    base_difficulty: int = nc.BASE_DIFFICULTY
+    max_multiplier: float = 5.0
+    # Reuse precached work when its difficulty is at least this fraction of
+    # the requested multiplier (reference dpow_server.py:37).
+    precache_reuse_fraction: float = 0.8
+
+    def resolve(
+        self,
+        difficulty_hex: Optional[str] = None,
+        multiplier: Optional[float] = None,
+    ) -> int:
+        """Resolve a service request's difficulty/multiplier fields → u64.
+
+        Mirrors reference dpow_server.py:250-282: explicit difficulty wins
+        over multiplier; both are validated against max_multiplier (out of
+        range raises InvalidMultiplier); absent both, the base applies.
+        """
+        if difficulty_hex is not None:
+            difficulty = int(nc.validate_difficulty(difficulty_hex), 16)
+            mult = nc.derive_work_multiplier(difficulty, self.base_difficulty)
+            if mult > self.max_multiplier or mult < 1.0 / self.max_multiplier:
+                raise nc.InvalidMultiplier(
+                    f"difficulty {difficulty_hex} outside allowed multiplier range "
+                    f"[{1.0 / self.max_multiplier}, {self.max_multiplier}]"
+                )
+            return difficulty
+        if multiplier is not None:
+            multiplier = float(multiplier)
+            if multiplier > self.max_multiplier or multiplier < 1.0 / self.max_multiplier:
+                raise nc.InvalidMultiplier(
+                    f"multiplier {multiplier} outside allowed range"
+                )
+            return nc.derive_work_difficulty(multiplier, self.base_difficulty)
+        return self.base_difficulty
+
+    def precache_usable(self, precached_difficulty: int, requested_difficulty: int) -> bool:
+        """Is stored precache work strong enough for this request?"""
+        got = nc.derive_work_multiplier(precached_difficulty, self.base_difficulty)
+        want = nc.derive_work_multiplier(requested_difficulty, self.base_difficulty)
+        return got >= self.precache_reuse_fraction * want
