@@ -183,7 +183,8 @@ def test_port_hub_precache_then_instant_hit():
 
 def test_port_hub_over_tcp_with_metrics_and_spans():
     """Server and worker on real TCP sockets with ACLs; the request leaves
-    its span chain and the hub's families on the upcheck port's /metrics."""
+    its span chain, the hub's families and the engine's on the upcheck
+    port's /metrics."""
 
     async def main():
         obs.reset()
@@ -218,6 +219,18 @@ def test_port_hub_over_tcp_with_metrics_and_spans():
                         "dpow_fleet_dispatch_total", "dpow_resource_outstanding",
                         "dpow_client_work_total"):
                 assert fam in parsed, fam
+            # What tests/test_e2e.py asserts of tpu_dpow's stack: every stage
+            # on the wire, the client's dispatch and the engine's device
+            # mark included, and the engine families through the same
+            # registry, labelled engine="torch".
+            wire_stages = {lab["stage"] for lab, v in parsed["dpow_request_stage_seconds_count"]
+                           if v >= 1}
+            for want in ("queue", "publish", "dispatch", "pack", "device", "result"):
+                assert want in wire_stages, (want, wire_stages)
+            assert any(v >= 1 for _, v in parsed["dpow_engine_batch_occupancy_count"])
+            for fam in ("dpow_engine_device_seconds_count", "dpow_engine_solutions_total",
+                        "dpow_engine_hashes_total", "dpow_engine_queue_wait_seconds_count"):
+                assert any(lab.get("engine") == "torch" and v >= 1 for lab, v in parsed[fam]), fam
         finally:
             await client.close()
             await runner.stop()

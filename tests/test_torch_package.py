@@ -5,10 +5,13 @@
   fan, the mesh gang, the multi-host layout, the chaos seam, the fault
   domains, the logging helper, the worker client, the transport, the
   tracer and the hub with its store, sched, fleet, replica and precache
-  layers included; ``python -m tpu_dpow_torch.client --help`` exits 0.
+  layers, the MQTT and websocket faces and the load generator included;
+  ``python -m tpu_dpow_torch.client --help`` exits 0.
 * The kernel's arithmetic header (``ops/csrc/blake2b_search.cuh``), built for
   the host with ``g++``, gives hashlib's work values.
-* ``chip_smoke.py`` fails, and prints no result, where no card is visible.
+* ``chip_smoke.py`` and ``chip_cover_stress.py`` fail, and print no result,
+  where no card is visible; the smoke's mid-launch cover check counts the
+  launches that re-dispatched a job.
 * On a card (marker ``cuda``, skipped here): each kernel equals its plain
   version bit for bit — the persistent run kernel with and without a
   scripted control channel, its LaunchControl bookkeeping included, and with
@@ -16,13 +19,16 @@
   mesh functions over every visible card equal their plain versions.
 """
 
+import asyncio
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import struct
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -76,7 +82,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "        'tpu_dpow_torch.precache', 'tpu_dpow_torch.precache.pipeline',\n"
         "        'tpu_dpow_torch.chaos.store', 'tpu_dpow_torch.chaos.transport',\n"
         "        'tpu_dpow_torch.chaos.backend', 'tpu_dpow_torch.resilience.supervisor',\n"
-        "        'tpu_dpow_torch.utils.throttle'}\n"
+        "        'tpu_dpow_torch.utils.throttle', 'tpu_dpow_torch.transport.mqtt',\n"
+        "        'tpu_dpow_torch.transport.ws', 'tpu_dpow_torch.transport.__main__',\n"
+        "        'tpu_dpow_torch.loadgen', 'tpu_dpow_torch.loadgen.arrival',\n"
+        "        'tpu_dpow_torch.loadgen.population', 'tpu_dpow_torch.loadgen.recorder',\n"
+        "        'tpu_dpow_torch.loadgen.driver', 'tpu_dpow_torch.loadgen.responder',\n"
+        "        'tpu_dpow_torch.loadgen.config'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -137,6 +148,46 @@ def test_chip_smoke_refuses_without_a_card():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_cover_stress_refuses_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_cover_stress.py"), "--runs", "1"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def test_cover_check_counts_launches_dispatched_after_the_rebase():
+    """chip_smoke.py's mid-launch cover check: an in-flight launch that
+    carries the job and was not among the launches the rebase was written
+    into counts as a re-dispatch; those known before and other jobs' do not."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    job, other = SimpleNamespace(block_hash="AA"), SimpleNamespace(block_hash="BB")
+    known = SimpleNamespace(jobs=[job])
+    backend = SimpleNamespace(_inflight=[known])
+
+    async def drive():
+        task = asyncio.get_running_loop().create_future()
+
+        async def engine():
+            await asyncio.sleep(0.01)
+            backend._inflight = [known, SimpleNamespace(jobs=[other]),
+                                 SimpleNamespace(jobs=[other, job])]
+            await asyncio.sleep(0.01)
+            backend._inflight = []
+            task.set_result("00000000000000ff")
+
+        pending = asyncio.ensure_future(engine())
+        got = await smoke._result_tracking(backend, task, "AA", [(known, 0)], "the job")
+        await pending
+        return got
+
+    assert asyncio.run(drive()) == ("00000000000000ff", 1)
 
 
 def test_queued_launch_sleeps_until_its_start_event():

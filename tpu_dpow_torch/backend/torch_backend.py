@@ -146,7 +146,12 @@ class _Job:
     epoch: int = 0
     # P(no launch currently in flight solves this job); 1.0 = uncovered.
     inflight_miss: float = 1.0
-    packed: bool = False  # included in a launch yet (the trace's 'pack' mark)
+    # Stage stamps (perf_counter): submission and first dispatch — the
+    # queue-wait histogram and the timeline; a job's first dispatch is also
+    # the trace's 'pack' mark.
+    t_submit: float = 0.0
+    t_first_dispatch: float = 0.0
+    applied_launches: int = 0  # launches applied that carried this job
     # Device fan: per-device shard state, by PHYSICAL device index.
     dev_bases: "Optional[list]" = None  # split policy: per-device next base
     dev_scanned: "Optional[list]" = None  # nonces scanned per device (this job)
@@ -193,8 +198,10 @@ class _Launch:
     # degraded width runs on a subset of the fan).
     dev_bases: "Optional[list]" = None
     fan_map: "Optional[list]" = None
-    # Stage stamps, perf_counter and injectable clock: t_thread, t_done,
-    # t_thread_clock, t_done_clock (window-time EMA, per-device rates).
+    # Stage stamps, perf_counter and injectable clock: t_dispatch and the
+    # inflight depth at dispatch, t_thread, t_done, t_thread_clock,
+    # t_done_clock (engine families, window-time EMA, per-device rates),
+    # t_apply/batch/steps once applied (the timeline).
     timing: dict = field(default_factory=dict)
     # Dispatch stamp on the injectable clock: the watchdog's deadline anchor
     # for a launch that has not polled yet.
@@ -378,10 +385,50 @@ class TorchWorkBackend(WorkBackend):
         self._closed = False
         self.total_hashes = 0
         self.total_solutions = 0
+        # Per-stage latency decomposition: when on, every applied launch
+        # appends ("launch", {t_dispatch, t_thread, t_done, t_apply, batch,
+        # steps, ...}) and every solve ("solve", {queue_wait, total,
+        # launches}) to ``timeline``. The perf_counter stamps are taken
+        # always, since the engine families below consume them;
+        # record_timeline only gates the deque.
+        self.record_timeline = False
+        self.timeline: "deque[tuple]" = deque(maxlen=1024)
         self._tracer = obs.get_tracer()
+        # The engine families, named, bucketed and labelled as the JAX
+        # engine's (engine="torch" where it writes "jax"): batch occupancy,
+        # executor-queue vs device time from the launch stamps, scan rate.
+        reg = obs.get_registry()
+        self._m_hashes = reg.counter(
+            "dpow_engine_hashes_total", "Nonces scanned on device", ("engine",))
+        self._m_solutions = reg.counter(
+            "dpow_engine_solutions_total", "Nonces found and host-validated",
+            ("engine",))
+        self._m_batch_rows = reg.histogram(
+            "dpow_engine_batch_occupancy",
+            "Live jobs packed per device launch (padding excluded)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+        self._m_exec_queue = reg.histogram(
+            "dpow_engine_executor_queue_seconds",
+            "Launch wait between executor submit and the launch thread "
+            "starting", ("engine",))
+        self._m_device_seconds = reg.histogram(
+            "dpow_engine_device_seconds",
+            "Blocking device launch time (dispatch + scan + readback)",
+            ("engine",))
+        self._m_queue_wait = reg.histogram(
+            "dpow_engine_queue_wait_seconds",
+            "Job wait from submission to its first device dispatch",
+            ("engine",))
+        self._m_jobs = reg.gauge(
+            "dpow_engine_jobs", "Jobs currently tracked by the engine",
+            ("engine",))
+        self._m_rungs = reg.gauge(
+            "dpow_engine_rungs", "Distinct difficulty rungs with live demand")
+        self._m_hash_rate = reg.gauge(
+            "dpow_engine_hash_rate_hs",
+            "Scan rate of the most recently applied launch (H/s)", ("engine",))
         # Persistent-mode families, named as the JAX engine's: launch
         # length, control-channel traffic and poll-to-effect latency.
-        reg = obs.get_registry()
         self._m_p_windows = reg.histogram(
             "dpow_backend_persistent_launch_windows",
             "Windows a persistent launch actually ran before win/cancel/"
@@ -515,6 +562,7 @@ class TorchWorkBackend(WorkBackend):
             params=search.pack_params(request.hash_bytes, request.difficulty, 0),
             future=asyncio.get_running_loop().create_future(),
             base=0,
+            t_submit=time.perf_counter(),
         )
         # An assigned nonce range pins the scan base to its start (a soft
         # hint: the scan runs on past its end). Without one, a random base
@@ -1510,6 +1558,16 @@ class TorchWorkBackend(WorkBackend):
             params = self._pack(active, b)
             span = self.chunk * steps
         factors = [self._miss_factor(j.difficulty, span) for j in active]
+        # Stamped before the submit: the executor-queue histogram measures
+        # dispatch -> launch thread start.
+        timing: dict = {"t_dispatch": time.perf_counter(), "inflight": inflight}
+        self._m_batch_rows.observe(len(active))
+        self._m_jobs.set(len(self._jobs), "torch")
+        self._m_rungs.set(len(rungs))
+        for job in active:
+            if not job.t_first_dispatch:
+                job.t_first_dispatch = timing["t_dispatch"]
+                self._tracer.mark_hash(job.block_hash, "pack")
         slot, launch_control = 0, None
         if self.run_mode == "persistent":
             # One control block per launch, slot-registered so the launch
@@ -1520,7 +1578,6 @@ class TorchWorkBackend(WorkBackend):
                 fan_map=fan_map,
             )
             slot = ctl.register(launch_control)
-        timing: dict = {}
         thread_done = threading.Event()
         rec = _Launch(
             fut=self._submit_launch(
@@ -1547,10 +1604,6 @@ class TorchWorkBackend(WorkBackend):
             thread_done=thread_done,
         )
         span_dev = self.chunk_per_shard * steps
-        for job in active:
-            if not job.packed:
-                job.packed = True
-                self._tracer.mark_hash(job.block_hash, "pack")
         for job, f in zip(active, factors):
             if self.fan is not None:
                 self._fan_advance(job, span_dev)
@@ -1560,6 +1613,21 @@ class TorchWorkBackend(WorkBackend):
         return rec
 
     def _apply_results(self, rec: _Launch, lo_arr, hi_arr) -> None:
+        """Apply one launch's results: once per launch in every run mode (a
+        fanned or ganged launch is one record however many members ran it),
+        so the engine families count launches, not members."""
+        timing = rec.timing
+        timing["t_apply"] = time.perf_counter()
+        timing["batch"], timing["steps"] = rec.batch, rec.steps
+        if "t_thread" in timing and "t_done" in timing:
+            self._m_exec_queue.observe(
+                max(0.0, timing["t_thread"] - timing["t_dispatch"]), "torch"
+            )
+            self._m_device_seconds.observe(
+                max(0.0, timing["t_done"] - timing["t_thread"]), "torch"
+            )
+        if self.record_timeline:
+            self.timeline.append(("launch", timing))
         c = rec.control
         windows_ran = rec.steps
         if c is not None:
@@ -1574,7 +1642,6 @@ class TorchWorkBackend(WorkBackend):
             for _row, action, latency, _token in c.delivered:
                 self._m_p_control.inc(1, action)
                 self._m_p_effect.observe(latency)
-        timing = rec.timing
         if "t_done" in timing and "t_thread" in timing:
             # Wall seconds per launch window (EMA): the poll-cadence →
             # seconds conversion behind the watchdog's progress deadlines.
@@ -1595,19 +1662,40 @@ class TorchWorkBackend(WorkBackend):
             # This launch is no longer in flight: undo its coverage factor
             # (clamped — repeated multiply/divide may drift past 1.0).
             job.inflight_miss = min(1.0, job.inflight_miss / f)
+            job.applied_launches += 1
         if rec.dev_bases is not None:
-            self._apply_fan_rows(rec, lo_arr, hi_arr)
+            applied_hashes = self._apply_fan_rows(rec, lo_arr, hi_arr)
         else:
-            self._apply_plain_rows(rec, lo_arr, hi_arr)
+            applied_hashes = self._apply_plain_rows(rec, lo_arr, hi_arr)
+        self.total_hashes += applied_hashes
+        self._m_hashes.inc(applied_hashes, "torch")
+        if timing.get("t_done", 0.0) > timing.get("t_thread", 0.0):
+            self._m_hash_rate.set(
+                applied_hashes / (timing["t_done"] - timing["t_thread"]), "torch"
+            )
 
     def _record_solve(self, job: _Job, work: str) -> None:
         """Shared per-solve bookkeeping (plain and fan apply paths)."""
         self.total_solutions += 1
+        self._m_solutions.inc(1, "torch")
         self._tracer.mark_hash(job.block_hash, "device")
+        if job.t_submit:
+            self._m_queue_wait.observe(
+                max(0.0, job.t_first_dispatch - job.t_submit), "torch"
+            )
         # Persistent successors still scanning the solved job exit within
         # one poll interval instead of grinding on.
         self._control_cancel_job(job)
         job.future.set_result(work)
+        if self.record_timeline and job.t_submit:
+            self.timeline.append((
+                "solve",
+                {
+                    "queue_wait": job.t_first_dispatch - job.t_submit,
+                    "total": time.perf_counter() - job.t_submit,
+                    "launches": job.applied_launches,
+                },
+            ))
 
     def _invalid_work(self, job: _Job, work: str, value: int, launched: int) -> None:
         """Device/host disagreement: a real bug, surfaced to the waiter."""
@@ -1618,7 +1706,10 @@ class TorchWorkBackend(WorkBackend):
             )
         )
 
-    def _apply_plain_rows(self, rec: _Launch, lo_arr, hi_arr) -> None:
+    def _apply_plain_rows(self, rec: _Launch, lo_arr, hi_arr) -> int:
+        """Apply a plain or ganged launch's rows; returns the nonces they
+        scanned."""
+        applied_hashes = 0
         c = rec.control
         for i, (job, launched, base, epoch, lo, hi) in enumerate(zip(
             rec.jobs, rec.launched_difficulty, rec.bases, rec.epochs,
@@ -1639,9 +1730,9 @@ class TorchWorkBackend(WorkBackend):
                     # A cancelled row exited early: count the windows the
                     # device actually ran, not the full span.
                     span_i = min(rec.span, c.windows_run(i, rec.steps) * self.chunk)
-                self.total_hashes += span_i
+                applied_hashes += span_i
                 continue
-            self.total_hashes += ((nonce - base) & _MASK64) + 1
+            applied_hashes += ((nonce - base) & _MASK64) + 1
             if job.future.done():
                 continue  # cancelled/solved while the launch was in flight
             work = search.work_hex_from_nonce(nonce)
@@ -1656,15 +1747,16 @@ class TorchWorkBackend(WorkBackend):
                     job.set_base(nonce + 1)
             else:
                 self._invalid_work(job, work, value, launched)
+        return applied_hashes
 
-    def _apply_fan_rows(self, rec: _Launch, lo_arr, hi_arr) -> None:
+    def _apply_fan_rows(self, rec: _Launch, lo_arr, hi_arr) -> int:
         """Apply one fanned launch: winner election + device attribution.
 
         ``lo_arr``/``hi_arr`` are per-device absolute nonces [n_dev, B].
         Per row, the hit scanned in the fewest nonces from its device's
         launch base wins (deterministic, the mesh election's order); the
         win is attributed to that device: its scan counter and scan clock
-        produce the EMA sample.
+        produce the EMA sample. Returns the nonces every member scanned.
         """
         fan_map = rec.fan_map or list(range(len(self.fan)))
         n = len(fan_map)  # launch slices; fan_map[s] is the physical device
@@ -1707,7 +1799,6 @@ class TorchWorkBackend(WorkBackend):
             for s in range(n):
                 d = fan_map[s]
                 per_slice_scanned[s] += row_scanned[s]
-                self.total_hashes += row_scanned[s]
                 if job.dev_scanned is not None and epoch_dev[s] == job.epoch:
                     # Same-partition results only; a device that ADOPTED a
                     # rebase mid-launch and then ran dry scanned its pre-
@@ -1741,6 +1832,7 @@ class TorchWorkBackend(WorkBackend):
                     self._invalid_work(job, work, value, launched_dev[s])
                     break
         self._fan_update_device_metrics(rec, per_slice_scanned)
+        return sum(per_slice_scanned)
 
     def _attribute_win(self, job: _Job, d: int, epoch: int) -> None:
         """Fold one win into device d's EMA on ITS scan clock."""
@@ -1873,3 +1965,8 @@ class TorchWorkBackend(WorkBackend):
     def _gc_jobs(self) -> None:
         for key in [k for k, j in self._jobs.items() if j.future.done()]:
             del self._jobs[key]
+        # A drained engine must read 0, not the last batch's values: the
+        # pack path only runs while there is demand to pack.
+        self._m_jobs.set(len(self._jobs), "torch")
+        if not self._jobs:
+            self._m_rungs.set(0)

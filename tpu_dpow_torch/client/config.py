@@ -6,7 +6,8 @@ default, the port's one engine) and ``--device`` picks its device (``cuda``
 by default, ``cpu`` runs the plain PyTorch search), as the port's work
 server does. ``--compilation_cache``, an XLA knob, has no counterpart. A
 non-empty ``--backend_fallback`` raises: the failover chain and the engines
-it fails over to are not ported yet.
+it fails over to are not ported yet. ``--server`` takes every transport
+scheme of ``tpu_dpow``: ``tcp://``, ``mqtt://`` and ``ws://``/``wss://``.
 """
 
 from __future__ import annotations
@@ -163,8 +164,8 @@ def parse_args(argv=None) -> ClientConfig:
     c = ClientConfig()
     p = argparse.ArgumentParser("tpu-dpow-torch client")
     p.add_argument("--server", dest="server_uri", default=c.server_uri,
-                   help="broker URI: tcp:// (JSON-lines; mqtt:// and ws:// "
-                   "are not ported yet)")
+                   help="broker URI: tcp:// (JSON-lines), mqtt:// (real MQTT "
+                   "3.1.1 — also works against a stock Mosquitto), or ws://")
     p.add_argument("--payout", dest="payout_address", required=True,
                    help="nano account receiving work credit")
     p.add_argument("--work", dest="work_type", default="any",

@@ -20,11 +20,12 @@ Implementations: in-process (tests, single-process deployments) and TCP
 by implementing Transport against any client library.
 
 This is the port's own copy of ``tpu_dpow/transport/``: the same topics,
-ACLs, QoS semantics and JSON-lines frames, so a port endpoint talks to a
-``tpu_dpow`` broker and the reverse. The MQTT 3.1.1 and websocket faces
-(``mqtt://``, ``ws://``) are not ported yet: their schemes raise
-:class:`TransportError`, and the TCP broker closes a connection that opens
-with an MQTT CONNECT.
+ACLs, QoS semantics, JSON-lines frames and MQTT 3.1.1 packets, so a port
+endpoint talks to a ``tpu_dpow`` broker and the reverse. Faces: JSON-lines
+over TCP (``tcp://``), MQTT 3.1.1 on the same TCP port (``mqtt://``, sniffed
+per connection) and websockets carrying either dialect (``ws://``,
+``wss://``); ``python -m tpu_dpow_torch.transport`` runs the standalone
+broker.
 """
 
 from __future__ import annotations
@@ -161,21 +162,27 @@ class User:
 
 
 def transport_from_uri(uri: str, **kwargs) -> "Transport":
-    """Transport by URI scheme: ``tcp://``/``dpow://`` → the JSON-lines
-    protocol. ``mqtt://`` and ``ws://``/``wss://`` are schemes of the JAX
-    package's transport that the port does not speak yet: they raise."""
+    """Transport by URI scheme.
+
+    ``mqtt://`` → real MQTT 3.1.1 wire (this broker or a stock Mosquitto);
+    ``tcp://``/``dpow://`` → the JSON-lines protocol; ``ws://``/``wss://`` →
+    websocket frames.
+    """
     from urllib.parse import urlparse
 
     scheme = urlparse(uri).scheme
+    if scheme == "mqtt":
+        from .mqtt import MqttTransport
+
+        return MqttTransport.from_uri(uri, **kwargs)
     if scheme in ("tcp", "dpow"):
         from .tcp import TcpTransport
 
         return TcpTransport.from_uri(uri, **kwargs)
-    if scheme in ("mqtt", "ws", "wss"):
-        raise TransportError(
-            f"transport scheme {scheme!r} is not ported yet; use tcp:// "
-            "(the JSON-lines protocol every broker of this project serves)"
-        )
+    if scheme in ("ws", "wss"):
+        from .ws import WsTransport
+
+        return WsTransport.from_uri(uri, **kwargs)
     raise TransportError(f"unsupported transport scheme {scheme!r}")
 
 

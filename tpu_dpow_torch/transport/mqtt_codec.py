@@ -11,9 +11,9 @@ PINGREQ/PINGRESP, DISCONNECT — i.e. everything the topic contract
 (docs/specification.md) exercises. Not implemented (and not used by the
 contract): QoS 2, retained messages, will messages (parsed, ignored).
 
-Pure functions over bytes. The port keeps its own copy so that its work and
-result payloads are byte-identical to ``tpu_dpow``'s; the asyncio MQTT face
-(``tpu_dpow/transport/mqtt.py``) is not ported yet.
+Pure functions over bytes; the asyncio faces live in transport/mqtt.py. The
+port keeps its own copy so that its packets and its work and result payloads
+are byte-identical to ``tpu_dpow``'s.
 Packet formats follow MQTT 3.1.1 (OASIS standard, §2-§3).
 """
 
