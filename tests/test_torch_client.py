@@ -534,7 +534,7 @@ def test_backend_kwargs_map_every_engine_knob():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--backend_fallback", "native"], "backend_fallback"),
+    (["--backend_fallback", "bogus"], "backend_fallback"),
     (["--devices", "2", "--mesh_devices", "2"], "exclusive"),
     (["--codec", "v1", "--fleet_announce_interval", "0"], "fleet_announce_interval"),
 ])

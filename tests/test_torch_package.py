@@ -5,8 +5,10 @@
   fan, the mesh gang, the multi-host layout, the chaos seam, the fault
   domains, the logging helper, the worker client, the transport, the
   tracer and the hub with its store, sched, fleet, replica and precache
-  layers, the MQTT and websocket faces and the load generator included;
-  ``python -m tpu_dpow_torch.client --help`` exits 0.
+  layers, the MQTT and websocket faces, the load generator, the native and
+  subprocess engines, the failover chain, the work server and the six
+  operator scripts included; ``python -m tpu_dpow_torch.client --help``
+  exits 0.
 * The kernel's arithmetic header (``ops/csrc/blake2b_search.cuh``), built for
   the host with ``g++``, gives hashlib's work values.
 * ``chip_smoke.py`` and ``chip_cover_stress.py`` fail, and print no result,
@@ -87,7 +89,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "        'tpu_dpow_torch.loadgen', 'tpu_dpow_torch.loadgen.arrival',\n"
         "        'tpu_dpow_torch.loadgen.population', 'tpu_dpow_torch.loadgen.recorder',\n"
         "        'tpu_dpow_torch.loadgen.driver', 'tpu_dpow_torch.loadgen.responder',\n"
-        "        'tpu_dpow_torch.loadgen.config'}\n"
+        "        'tpu_dpow_torch.loadgen.config', 'tpu_dpow_torch.backend.native_backend',\n"
+        "        'tpu_dpow_torch.backend.subprocess_backend', 'tpu_dpow_torch.resilience.failover',\n"
+        "        'tpu_dpow_torch.workserver', 'tpu_dpow_torch.workserver.__main__',\n"
+        "        'tpu_dpow_torch.scripts', 'tpu_dpow_torch.scripts.services',\n"
+        "        'tpu_dpow_torch.scripts.client_snapshot', 'tpu_dpow_torch.scripts.payouts',\n"
+        "        'tpu_dpow_torch.scripts.check_latency', 'tpu_dpow_torch.scripts.chaos_demo'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -4,10 +4,15 @@ Mirrors tests/test_workserver.py: ``tpu_dpow_torch.workserver.WorkServer``
 speaks the nano-work-server HTTP JSON-RPC, and ``tpu_dpow``'s
 ``SubprocessWorkBackend`` drives it as a client, so one test covers both
 sides of the wire contract with the port's engine (plain version, CPU)
-underneath.
+underneath. The port's own ``SubprocessWorkBackend`` drives it over the
+native engine, and ``WorkServerProcess`` stops cooperative and
+SIGTERM-ignoring children within its graces.
 """
 
 import asyncio
+import shutil
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -108,3 +113,122 @@ def test_module_entrypoint_parses_listen():
 
     with pytest.raises(SystemExit):
         entry.main(["--listen", "no-port-here"])
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no C++ toolchain")
+def test_workserver_with_native_backend():
+    async def run():
+        from tpu_dpow_torch.backend.native_backend import NativeWorkBackend
+        from tpu_dpow_torch.backend.subprocess_backend import (
+            SubprocessWorkBackend as PortSubprocessWorkBackend,
+        )
+        from tpu_dpow_torch.models import WorkRequest as PortWorkRequest
+
+        server = WorkServer(NativeWorkBackend(threads=1, chunk=1 << 16), port=0)
+        await server.start()
+        clients = [PortSubprocessWorkBackend(uri=f"127.0.0.1:{server.port}"),
+                   SubprocessWorkBackend(uri=f"http://127.0.0.1:{server.port}")]
+        try:
+            for client, request in zip(clients, (PortWorkRequest, WorkRequest)):
+                await client.setup()
+                h = random_hash()
+                work = await client.generate(request(h, EASY))
+                nc.validate_work(h, work, EASY)
+        finally:
+            for client in clients:
+                await client.close()
+            await server.stop()
+
+    asyncio.run(asyncio.wait_for(run(), timeout=60))
+
+
+def test_workserver_process_stop_kills_sigterm_ignoring_child():
+    """A work-server child that IGNORES terminate is killed within the
+    close bound — never awaited forever."""
+    from tpu_dpow_torch.workserver import WorkServerProcess
+
+    stubborn = (
+        "import signal, time; "
+        "signal.signal(signal.SIGTERM, signal.SIG_IGN); "
+        "print('up', flush=True); time.sleep(600)"
+    )
+
+    async def run():
+        mgr = WorkServerProcess([sys.executable, "-c", stubborn],
+                                terminate_grace=0.5, kill_grace=10.0)
+        await mgr.start()
+        assert mgr.pid is not None
+        await asyncio.sleep(0.3)  # let the child install its handler
+        t0 = time.monotonic()
+        confirmed = await mgr.stop()
+        elapsed = time.monotonic() - t0
+        assert confirmed, "child must be confirmed dead after escalation"
+        assert elapsed < 8.0, f"stop() took {elapsed:.1f}s — not bounded"
+        assert elapsed >= 0.4, "child ignored SIGTERM; kill escalation ran"
+        assert await mgr.stop()  # idempotent: a second stop is a no-op
+
+    asyncio.run(asyncio.wait_for(run(), timeout=60))
+
+
+def test_workserver_process_stop_cooperative_child_is_fast():
+    """A child that honors SIGTERM exits inside terminate_grace — no kill
+    escalation, stop() returns promptly."""
+    from tpu_dpow_torch.workserver import WorkServerProcess
+
+    async def run():
+        mgr = WorkServerProcess([sys.executable, "-c", "import time; time.sleep(600)"],
+                                terminate_grace=5.0, kill_grace=5.0)
+        await mgr.start()
+        await asyncio.sleep(0.2)
+        t0 = time.monotonic()
+        assert await mgr.stop()
+        assert time.monotonic() - t0 < 4.0
+        assert mgr.returncode is None  # detached: the handle is gone
+
+    asyncio.run(asyncio.wait_for(run(), timeout=30))
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no C++ toolchain")
+def test_module_entrypoint_serves_the_native_backend_under_the_process_manager():
+    """``python -m tpu_dpow_torch.workserver --backend native --threads 1``
+    under ``WorkServerProcess`` answers the port's subprocess client, and
+    stops within its graces."""
+    import os
+    import socket
+
+    from tpu_dpow_torch.backend.subprocess_backend import (
+        SubprocessWorkBackend as PortSubprocessWorkBackend,
+    )
+    from tpu_dpow_torch.models import WorkRequest as PortWorkRequest
+    from tpu_dpow_torch.workserver import WorkServerProcess
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    async def run():
+        mgr = WorkServerProcess(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, {repo!r}); "
+             "from tpu_dpow_torch.workserver.__main__ import main; "
+             f"main(['--listen', '127.0.0.1:{port}', '--backend', 'native', '--threads', '1'])"],
+            terminate_grace=5.0, kill_grace=5.0)
+        await mgr.start()
+        client = PortSubprocessWorkBackend(uri=f"http://127.0.0.1:{port}")
+        try:
+            for _ in range(200):
+                try:
+                    await client.setup()
+                    break
+                except Exception:
+                    await asyncio.sleep(0.05)
+            h = random_hash()
+            work = await client.generate(PortWorkRequest(h, EASY))
+            nc.validate_work(h, work, EASY)
+        finally:
+            await client.close()
+            t0 = time.monotonic()
+            assert await mgr.stop()
+            assert time.monotonic() - t0 < 5.0
+
+    asyncio.run(asyncio.wait_for(run(), timeout=60))

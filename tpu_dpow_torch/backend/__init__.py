@@ -3,11 +3,17 @@
 Counterpart of ``tpu_dpow/backend/__init__.py``. The reference's equivalent
 seam is an HTTP POST of ``{"action": "work_generate", hash, difficulty}`` to
 an external ``nano-work-server``, with ``work_cancel`` aborting an in-flight
-hash; here it is an async protocol. This package has one engine:
-:class:`~tpu_dpow_torch.backend.torch_backend.TorchWorkBackend`, the batched
-nonce search through the hand-written CUDA kernels on one GPU or fanned
-over several (``devices=``), or on the CPU through their plain PyTorch
-versions.
+hash; here it is an async protocol with three interchangeable engines:
+
+  * :class:`~tpu_dpow_torch.backend.torch_backend.TorchWorkBackend` — the
+    batched nonce search through the hand-written CUDA kernels on one GPU
+    or fanned over several (``devices=``), or on the CPU through their
+    plain PyTorch versions. The flagship path.
+  * :class:`~tpu_dpow_torch.backend.native_backend.NativeWorkBackend` — C++
+    multithreaded CPU search via ctypes (the reference's CPU mode analog),
+    the usual fallback of the failover chain (resilience/failover.py).
+  * :class:`~tpu_dpow_torch.backend.subprocess_backend.SubprocessWorkBackend`
+    — HTTP JSON-RPC to an external nano-work-server-compatible process.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ class WorkCancelled(WorkError):
 class DevicesExhausted(WorkError):
     """Every device in the engine's fault domain is quarantined: the
     engine KNOWS it cannot serve (resilience/devfault.py). Distinct from a
-    plain WorkError so a caller can fail over at once instead of waiting
-    out a hang budget, and count the cause separately from a hang."""
+    plain WorkError so the failover chain (resilience/failover.py) can
+    escalate immediately — trip the engine's breaker outright instead of
+    probing a backend that has already declared itself dead — and count the
+    cause separately from a hang."""
 
 
 async def await_shared_job(job, abort: Callable[[], None]) -> str:
@@ -92,11 +100,21 @@ class WorkBackend(abc.ABC):
 
 
 def get_backend(name: str, **kwargs) -> WorkBackend:
-    """Construct a backend by name: 'torch' (keyword arguments go to
-    :class:`~tpu_dpow_torch.backend.torch_backend.TorchWorkBackend`, e.g.
-    ``devices=-1, device_shard="interleave"`` for the device fan)."""
+    """Construct a backend by name: 'torch' | 'native' | 'subprocess'.
+
+    Keyword arguments go to the engine's constructor, e.g. ``devices=-1,
+    device_shard="interleave"`` for the torch engine's device fan,
+    ``threads=`` for native, ``uri=`` for subprocess."""
     if name == "torch":
         from .torch_backend import TorchWorkBackend
 
         return TorchWorkBackend(**kwargs)
+    if name == "native":
+        from .native_backend import NativeWorkBackend
+
+        return NativeWorkBackend(**kwargs)
+    if name == "subprocess":
+        from .subprocess_backend import SubprocessWorkBackend
+
+        return SubprocessWorkBackend(**kwargs)
     raise ValueError(f"unknown work backend: {name!r}")

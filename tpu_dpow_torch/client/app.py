@@ -102,36 +102,52 @@ class DpowClient:
     # -- wiring ---------------------------------------------------------
 
     @staticmethod
-    def _backend_kwargs(config: ClientConfig) -> dict:
-        """Every engine knob of the config, as TorchWorkBackend takes it
-        (0 = the engine's own auto default)."""
-        kwargs = {
-            "device": config.device,
-            "max_batch": config.max_batch,
-            "mesh_devices": config.mesh_devices,
-            "devices": config.devices,
-            "device_shard": config.device_shard,
-            "run_mode": config.run_mode,
-            "device_probe_interval": config.device_probe_interval,
-            "step_ladder": config.step_ladder,
-        }
-        if config.run_steps > 0:
-            kwargs["run_steps"] = config.run_steps
-        if config.control_poll_steps > 0:
-            kwargs["control_poll_steps"] = config.control_poll_steps
-        if config.device_suspect_after > 0:
-            kwargs["device_suspect_after"] = config.device_suspect_after
-        if config.pipeline > 0:
-            kwargs["pipeline"] = config.pipeline
-        if config.shared_steps_cap > 0:
-            kwargs["shared_steps_cap"] = config.shared_steps_cap
+    def _backend_kwargs(config: ClientConfig, name: str) -> dict:
+        """Per-backend knobs: the device, batching, fan, mesh and run-mode
+        knobs are the torch engine's (0 = its own auto default), the worker
+        URI the subprocess backend's; native takes neither."""
+        kwargs = {}
+        if name == "subprocess":
+            kwargs["uri"] = config.worker_uri
+        elif name == "torch":
+            kwargs["device"] = config.device
+            kwargs["max_batch"] = config.max_batch
+            kwargs["mesh_devices"] = config.mesh_devices
+            kwargs["devices"] = config.devices
+            kwargs["device_shard"] = config.device_shard
+            if config.run_steps > 0:
+                kwargs["run_steps"] = config.run_steps
+            kwargs["run_mode"] = config.run_mode
+            if config.control_poll_steps > 0:
+                kwargs["control_poll_steps"] = config.control_poll_steps
+            if config.device_suspect_after > 0:
+                kwargs["device_suspect_after"] = config.device_suspect_after
+            kwargs["device_probe_interval"] = config.device_probe_interval
+            if config.pipeline > 0:
+                kwargs["pipeline"] = config.pipeline
+            kwargs["step_ladder"] = config.step_ladder
+            if config.shared_steps_cap > 0:
+                kwargs["shared_steps_cap"] = config.shared_steps_cap
         return kwargs
 
     @classmethod
     def _build_backend(cls, config: ClientConfig) -> WorkBackend:
-        """The configured engine. The failover chain (--backend_fallback)
-        is not ported: ClientConfig refuses a non-empty one."""
-        return get_backend(config.backend, **cls._backend_kwargs(config))
+        """The configured engine — or, with --backend_fallback, the whole
+        failover chain behind per-engine circuit breakers
+        (resilience/failover.py): a primary that errors or hangs trips its
+        breaker and the fallback serves, instead of every request dying
+        with the reference's log-and-drop."""
+        names = [config.backend] + config.fallback_names
+        if len(names) == 1:
+            return get_backend(names[0], **cls._backend_kwargs(config, names[0]))
+        from ..resilience import FailoverBackend
+
+        return FailoverBackend(
+            [(n, get_backend(n, **cls._backend_kwargs(config, n))) for n in names],
+            failure_threshold=config.breaker_failures,
+            reset_timeout=config.breaker_reset,
+            hang_timeout=config.backend_hang_timeout,
+        )
 
     async def _send_result(self, request: WorkRequest, work: str) -> None:
         trace_id = self._tracer.id_for(request.block_hash)

@@ -10,6 +10,8 @@ Counterpart of ``tpu_dpow/resilience/``:
   devfault   — :class:`DeviceFaultDomains`: per-device healthy/suspect/
                quarantined state for the engine fan, driven by the
                engine's watchdog;
+  failover   — :class:`FailoverBackend`: torch → native → error engine
+               chain behind per-engine breakers (client-side);
   clock      — :class:`SystemClock` / :class:`FakeClock`: the injectable
                time seam every timer of the port runs on (the persistent
                run mode stamps control polls on it, the hub's heartbeat
@@ -18,8 +20,7 @@ Counterpart of ``tpu_dpow/resilience/``:
 The store-side half lives next to the stores it wraps:
 :class:`~tpu_dpow_torch.store.degraded.DegradedStore` (re-exported here)
 falls back from a dead primary to in-memory, journals writes, and
-reconciles on recovery. The client's engine failover chain
-(``tpu_dpow/resilience/failover.py``) is not ported yet.
+reconciles on recovery.
 """
 
 from ..store.degraded import DegradedStore  # noqa: F401
@@ -33,4 +34,5 @@ from .devfault import (  # noqa: F401
     DeviceFaultDomains,
     launch_deadline,
 )
+from .failover import FailoverBackend  # noqa: F401
 from .supervisor import DispatchSupervisor  # noqa: F401

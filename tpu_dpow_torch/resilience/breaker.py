@@ -1,7 +1,8 @@
 """Circuit breaker: stop hammering a dependency that keeps failing.
 
 The port's own copy of ``tpu_dpow/resilience/breaker.py``. Classic
-three-state machine (closed → open → half-open → closed); the device fault
+three-state machine (closed → open → half-open → closed), used by the
+client's engine failover chain (resilience/failover.py); the device fault
 domains (resilience/devfault.py) run one per device. The states are exported as a gauge so an
 operator can see a tripped engine on /metrics rather than inferring it
 from an error-rate dip:

@@ -9,11 +9,14 @@ that process around this package's engine, with the same contract —
     {"action": "work_validate", "hash": H, "work": W, ...}  → {"valid": "0"|"1"}
     anything else                                           → {"error": ...}
 
-so an unmodified nano-work-server client gets GPU-computed work.
+so an unmodified nano-work-server client gets GPU-computed work (or the
+native CPU engine's, ``--backend native``). :class:`WorkServerProcess`
+runs such a server as a child process with a bounded teardown.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 from typing import Optional
 
@@ -79,6 +82,82 @@ def build_app(backend: WorkBackend) -> web.Application:
     app = web.Application()
     app.router.add_post("/", handler)
     return app
+
+
+class WorkServerProcess:
+    """Managed EXTERNAL work server: spawn a nano-work-server-compatible
+    child process (this module's own ``python -m tpu_dpow_torch.workserver``,
+    or the reference's vendored binary) and guarantee bounded teardown.
+
+    The close path is the point: ``terminate`` is a polite SIGTERM, but a
+    wedged child — stuck in a device call, or simply ignoring the signal —
+    must not be awaited forever. ``stop`` escalates to SIGKILL after
+    ``terminate_grace`` and bounds the final wait too, so shutdown always
+    returns; a child that survives even SIGKILL's wait window (unkillable
+    D-state) is abandoned with an error log rather than blocking the
+    caller.
+    """
+
+    def __init__(
+        self,
+        argv: list,
+        *,
+        terminate_grace: float = 5.0,
+        kill_grace: float = 5.0,
+    ):
+        self.argv = list(argv)
+        self.terminate_grace = terminate_grace
+        self.kill_grace = kill_grace
+        self._proc: Optional[asyncio.subprocess.Process] = None
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self._proc.pid if self._proc is not None else None
+
+    @property
+    def returncode(self) -> Optional[int]:
+        return self._proc.returncode if self._proc is not None else None
+
+    async def start(self) -> None:
+        self._proc = await asyncio.create_subprocess_exec(*self.argv)
+
+    async def stop(self) -> bool:
+        """terminate → bounded wait → kill → bounded wait. True when the
+        child is confirmed gone; False when it was abandoned still
+        running (logged, never awaited forever)."""
+        # Detach-then-await: one teardown per child even under concurrent
+        # stop() calls.
+        proc, self._proc = self._proc, None
+        if proc is None or proc.returncode is not None:
+            return True
+        try:
+            proc.terminate()
+        except ProcessLookupError:
+            return True
+        try:
+            await asyncio.wait_for(proc.wait(), self.terminate_grace)
+            return True
+        except asyncio.TimeoutError:
+            logger.warning(
+                "work server pid %d ignored SIGTERM for %.1fs; killing",
+                proc.pid, self.terminate_grace,
+            )
+        try:
+            proc.kill()
+        except ProcessLookupError:
+            return True
+        try:
+            await asyncio.wait_for(proc.wait(), self.kill_grace)
+            return True
+        except asyncio.TimeoutError:
+            # Unkillable (D-state) child: abandon it — blocking shutdown
+            # on it would be strictly worse. The transport-less orphan is
+            # the kernel's to reap.
+            logger.error(
+                "work server pid %d survived SIGKILL for %.1fs; abandoned",
+                proc.pid, self.kill_grace,
+            )
+            return False
 
 
 class WorkServer:
