@@ -25,6 +25,7 @@ import asyncio
 import ctypes
 import hashlib
 import importlib.util
+import json
 import os
 import shutil
 import struct
@@ -94,7 +95,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "        'tpu_dpow_torch.workserver', 'tpu_dpow_torch.workserver.__main__',\n"
         "        'tpu_dpow_torch.scripts', 'tpu_dpow_torch.scripts.services',\n"
         "        'tpu_dpow_torch.scripts.client_snapshot', 'tpu_dpow_torch.scripts.payouts',\n"
-        "        'tpu_dpow_torch.scripts.check_latency', 'tpu_dpow_torch.scripts.chaos_demo'}\n"
+        "        'tpu_dpow_torch.scripts.check_latency', 'tpu_dpow_torch.scripts.chaos_demo',\n"
+        "        'tpu_dpow_torch.autoscale', 'tpu_dpow_torch.autoscale.config',\n"
+        "        'tpu_dpow_torch.autoscale.signals', 'tpu_dpow_torch.autoscale.controller',\n"
+        "        'tpu_dpow_torch.autoscale.journal', 'tpu_dpow_torch.autoscale.actuator',\n"
+        "        'tpu_dpow_torch.autoscale.__main__', 'tpu_dpow_torch.loadgen.sim'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -106,6 +111,26 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     count, missing, bad = out.stdout.strip().split(" ", 2)
     assert int(count) >= 40  # every module of the port was imported
     assert missing == "[]" and bad == "[]"
+
+
+def test_autoscaler_and_sim_load_no_torch():
+    """A replica the autoscaler spawns, and the autoscaler itself, open no
+    CUDA context: the autoscale package, the sim and the hub they drive
+    import without torch (and without jax or tpu_dpow)."""
+    probe = (
+        "import sys\n"
+        "import tpu_dpow_torch.autoscale, tpu_dpow_torch.autoscale.__main__\n"
+        "import tpu_dpow_torch.autoscale.actuator, tpu_dpow_torch.loadgen.sim\n"
+        "import tpu_dpow_torch.server.app\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'tpu_dpow')))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_client_entry_point_help_exits_zero():
@@ -195,6 +220,48 @@ def test_cover_check_counts_launches_dispatched_after_the_rebase():
         return got
 
     assert asyncio.run(drive()) == ("00000000000000ff", 1)
+
+
+STORE_DIR_CHILD = """
+import json, os, shutil, sys, tempfile
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+w = tempfile.mkdtemp()
+chip_smoke.NETWORK_FS = (chip_smoke._fs_type(w),) if sys.argv[2] == "network" else ()
+try:
+    with chip_smoke._store_dir(w) as (path, fs):
+        open(os.path.join(path, "shared.db"), "w").write("x")
+        mounted = [ln.split()[1] for ln in open("/proc/self/mounts") if path in ln]
+    print(json.dumps({"path": path, "fs": fs, "mounted": mounted,
+                      "left": os.listdir(path)}))
+except AssertionError as e:
+    print(json.dumps({"refused": str(e)}))
+shutil.rmtree(w)
+"""
+
+
+@pytest.mark.parametrize("kind", ["local", "network"])
+def test_autoscale_store_stays_inside_the_workdir(kind):
+    """The autoscale phase's shared sqlite store lives in ``workdir/store``.
+    On a local filesystem it is that directory; on a network one the phase
+    mounts a private tmpfs there, in a mount namespace of its own (gone with
+    the process tree), or refuses and names the fix. Run in a child, whose
+    namespace dies with it."""
+    out = subprocess.run([sys.executable, "-c", STORE_DIR_CHILD, REPO, kind], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if "refused" in got:
+        assert kind == "network" and "point TMPDIR at a tmpfs" in got["refused"]
+        return
+    assert os.path.basename(got["path"]) == "store"
+    if kind == "local":
+        assert got["mounted"] == [] and got["left"] == ["shared.db"]
+    else:
+        assert got["fs"].startswith("tmpfs (private, over ")
+        assert got["mounted"] == [got["path"]] and got["left"] == []
+    with open("/proc/self/mounts") as f:
+        assert got["path"] not in f.read()
 
 
 def test_queued_launch_sleeps_until_its_start_event():

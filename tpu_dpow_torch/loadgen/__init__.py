@@ -29,12 +29,16 @@ Wallets do not wait for anyone. This package is the open-loop generator:
                 round-robin with failover across N replica processes;
   responder   — a synthetic worker (real transport, fixed solve latency)
                 so orchestration-layer captures aren't confounded by
-                device compute (``python -m tpu_dpow_torch.loadgen.responder``).
+                device compute (``python -m tpu_dpow_torch.loadgen.responder``);
+  sim         — a discrete-event twin of the replica ring (admission
+                window + queue + service-time model) that runs
+                million-request schedules in seconds of wall clock with
+                the real autoscale controller (``tpu_dpow_torch.autoscale``)
+                in the loop. Imported as ``tpu_dpow_torch.loadgen.sim``.
 
 Names, seeds and metric families are ``tpu_dpow.loadgen``'s, so the same
-seed gives the same schedule, population and recorder output in both
-packages. The reference's discrete-event twin (``sim``) exists to run with
-the autoscale controller in the loop and is not part of the port yet.
+seed gives the same schedule, population, recorder output and sim outcome
+in both packages.
 """
 
 from .arrival import (  # noqa: F401
