@@ -2,8 +2,8 @@
 """Run the PyTorch + CUDA port on the visible GPUs: build, check, drive, time.
 
     python3 chip_smoke.py [--phases build,kernel_vs_plain,run_vs_plain,fan_vs_plain,engine,
-                                    persistent,fan,devfault,failover,mesh_vs_plain,mesh,client,
-                                    hub,swarm,ops,autoscale,kernel_time]
+                                    persistent,fan,devfault,analysis,failover,mesh_vs_plain,
+                                    mesh,client,hub,swarm,ops,autoscale,kernel_time]
 
 Drives ``tpu_dpow_torch`` only (never the JAX package). Each phase prints one
 JSON line; a failed phase raises, and the script exits nonzero without its
@@ -71,6 +71,20 @@ result lines.
                    probe of the wedged card fails → release → the grid drains
                    → a probe re-admits the card → a fresh solve; health back
                    at 0, every card synchronizes.
+  analysis         dpowlint and dpowsan: ``python -m tpu_dpow_torch.analysis
+                   --json`` on the checkout (rc 0, no finding, 17 families;
+                   prints its seconds), then the same entry point with
+                   ``--san --san_seeds 20`` in this process: the six
+                   seeded-interleaving scenarios, the device-fault one on
+                   the card (TorchWorkBackend persistent, its run kernel's
+                   poll wedged by FaultyDevice while release, cancel, raise
+                   and the watchdog race). Every scenario must be ok for
+                   all 20 seeds, the report clean with the LeakLedger at 0
+                   outstanding, and the run kernel's launch count must rise
+                   during the phase; prints the ok counts, the device-fault
+                   outcomes (served, cancelled, exhausted), the launches and
+                   the seconds. Then torch.cuda.synchronize() must return
+                   within 60 s: no grid is left running.
   failover         the engine failover chain (tpu_dpow_torch.resilience.failover)
                    with the torch engine on the card and the native C++ engine on
                    the host: g++ builds the port's blake2b_worker.cc (prints the
@@ -254,8 +268,8 @@ import sys
 import time
 
 PHASES = ("build", "kernel_vs_plain", "run_vs_plain", "fan_vs_plain", "engine", "persistent",
-          "fan", "devfault", "failover", "mesh_vs_plain", "mesh", "client", "hub", "swarm",
-          "ops", "autoscale", "kernel_time")
+          "fan", "devfault", "analysis", "failover", "mesh_vs_plain", "mesh", "client", "hub",
+          "swarm", "ops", "autoscale", "kernel_time")
 MAINNET = 0xFFFFFFF800000000  # send/change blocks
 RECEIVE = 0xFFFFFE0000000000  # receive blocks
 MAX_U64 = (1 << 64) - 1
@@ -1899,6 +1913,79 @@ async def _devfault(state: dict) -> dict:
 
 def phase_devfault(state: dict) -> None:
     emit(asyncio.run(_devfault(state)))
+
+
+# -- analysis --------------------------------------------------------------------
+
+#: dpowsan's seeds per scenario: the sanitizer's own default replay count.
+SAN_SEEDS = 20
+SAN_SCENARIO = re.compile(r"dpowsan: scenario=(\w+) seeds=(\d+) ok=(\d+)((?: \w+=\d+)*)$")
+
+
+def phase_analysis(state: dict) -> None:
+    """The static pass as a child (``python -m tpu_dpow_torch.analysis
+    --json``), then ``--san`` through the same entry point in this process,
+    so the run kernel's launch count is read around it."""
+    import io
+    import threading
+
+    import torch
+
+    from tpu_dpow_torch.analysis.__main__ import main as analysis_main
+    from tpu_dpow_torch.ops import cuda_kernel
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_dpow_torch.analysis", "--json"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    static_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dpowlint rc {proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    static = json.loads(proc.stdout)
+    if static["findings"] or static["families"] != 17:
+        raise AssertionError(f"dpowlint: {static}")
+
+    report = io.StringIO()
+    before = cuda_kernel.run_launches
+    t1 = time.perf_counter()
+    # 120 scenario runs log every request and takeover at INFO and WARNING
+    # on stdout; errors stay visible.
+    logging.disable(logging.WARNING)
+    try:
+        with contextlib.redirect_stderr(report):
+            rc = analysis_main(["--san", "--san_seeds", str(SAN_SEEDS)])
+    finally:
+        logging.disable(logging.NOTSET)
+    san_s = time.perf_counter() - t1
+    launches = cuda_kernel.run_launches - before
+    lines = report.getvalue().splitlines()
+    scenarios, outcomes = {}, {}
+    for line in lines:
+        m = SAN_SCENARIO.match(line)
+        if m:
+            scenarios[m.group(1)] = int(m.group(3))
+            if m.group(4):
+                outcomes = {k: int(v) for k, v in
+                            (kv.split("=") for kv in m.group(4).split())}
+    clean = f"dpowsan: clean ({6 * SAN_SEEDS} runs, {SAN_SEEDS} seeds per scenario)"
+    ledger = "dpowsan: ledger clean (0 outstanding)"
+    if (rc != 0 or len(scenarios) != 6 or set(scenarios.values()) != {SAN_SEEDS}
+            or clean not in lines or ledger not in lines):
+        raise AssertionError("dpowsan failed:\n" + report.getvalue()[-20000:])
+    if sum(outcomes.values()) != SAN_SEEDS:
+        raise AssertionError(f"devfault outcomes {outcomes} do not cover {SAN_SEEDS} seeds")
+    if launches <= 0:
+        raise AssertionError("the devfault scenario never launched the run kernel")
+    synced = threading.Thread(target=torch.cuda.synchronize, daemon=True)
+    synced.start()
+    synced.join(60.0)
+    if synced.is_alive():
+        raise AssertionError("torch.cuda.synchronize() did not return: a grid is still running")
+    emit({"phase": "analysis", "ok": True,
+          "static": {"findings": 0, "families": static["families"],
+                     "seconds": static_s, "checker_seconds": static["elapsed_s"]},
+          "san": {"seeds": SAN_SEEDS, "ok": scenarios, "clean": True, "ledger_clean": True,
+                  "devfault": outcomes, "run_launches": launches, "seconds": san_s},
+          "card": state["card"]["smi"]})
 
 
 # -- failover --------------------------------------------------------------------

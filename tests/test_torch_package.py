@@ -99,7 +99,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "        'tpu_dpow_torch.autoscale', 'tpu_dpow_torch.autoscale.config',\n"
         "        'tpu_dpow_torch.autoscale.signals', 'tpu_dpow_torch.autoscale.controller',\n"
         "        'tpu_dpow_torch.autoscale.journal', 'tpu_dpow_torch.autoscale.actuator',\n"
-        "        'tpu_dpow_torch.autoscale.__main__', 'tpu_dpow_torch.loadgen.sim'}\n"
+        "        'tpu_dpow_torch.autoscale.__main__', 'tpu_dpow_torch.loadgen.sim',\n"
+        "        'tpu_dpow_torch.analysis', 'tpu_dpow_torch.analysis.sanitizer',\n"
+        "        'tpu_dpow_torch.analysis.__main__'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

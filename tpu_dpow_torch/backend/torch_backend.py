@@ -771,6 +771,7 @@ class TorchWorkBackend(WorkBackend):
                 # real-time poll gives liveness under a frozen FakeClock,
                 # while the bound itself rides the injectable clock.
                 timer = asyncio.ensure_future(self._clock.sleep(step))
+                # dpowlint: disable=DPOW101 — liveness poll for real launch threads; the deadline above is what rides the Clock
                 poll = asyncio.ensure_future(asyncio.sleep(0.01))
                 await asyncio.wait({timer, poll}, return_when=asyncio.FIRST_COMPLETED)
                 timer.cancel()
@@ -1331,6 +1332,7 @@ class TorchWorkBackend(WorkBackend):
             def release_unstarted(f: concurrent.futures.Future) -> None:
                 if f.cancelled():
                     if slot:
+                        # dpowlint: disable=DPOW1004 — the launch was cancelled before a thread took it up: call_launch and its finally-release never run, so no launch thread exists to outlive the slot; release() is idempotent
                         ctl.release(slot)
                     if thread_done is not None:
                         thread_done.set()
@@ -1635,6 +1637,7 @@ class TorchWorkBackend(WorkBackend):
             # launch thread released it already) and export what the channel
             # saw — launch length, polls, commands delivered and their
             # issue->delivery latency on the injectable clock.
+            # dpowlint: disable=DPOW1004 — apply path: the thread already returned its results (we hold them), so its finally-release landed first; this is the idempotent belt-and-suspenders release
             ctl.release(rec.slot)
             windows_ran = min(c.last_k + self.control_poll_steps, rec.steps)
             self._m_p_polls.inc(c.polls)

@@ -560,6 +560,7 @@ def _sleep_until(event) -> int:
     progress. Returns the nanoseconds waited."""
     t0, nap = time.perf_counter_ns(), 20e-6
     while not event.query():
+        # dpowlint: disable=DPOW101 — a launch thread's nap while the card drains the work queued ahead of its kernel: progress is the CUDA event's, not a timer's, so no Clock can stand in for it
         time.sleep(nap)
         nap = min(2 * nap, QUEUED_SLEEP_MAX_S)
     return time.perf_counter_ns() - t0
