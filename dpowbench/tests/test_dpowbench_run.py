@@ -1,0 +1,286 @@
+"""Whole runs of the harness on the CPU: the port's broker, hub and worker
+(``--device cpu``) at a tiny threshold, with the cells' own mixes cut to a
+rate the CPU engine serves.
+
+The fault runs put a ``sitecustomize`` on the children's path that breaks
+the timed path underneath the harness, and see ``correct`` come out false.
+``DPOWBENCH_FAULT`` picks the fault: ``hub_reply`` alters the work in the
+hub's answer, ``worker_nonce`` the work the worker's engine produces (the
+hub then refuses it, so the answer never comes), ``second_work`` answers a
+repeated hash with another valid work than its first (a store that does not
+keep one work per hash), ``jax`` loads a module named ``jax`` in every
+child.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from dpowbench import drive, run
+from dpowbench.child import forbidden_modules
+from dpowbench.stack import ROOT
+
+TINY = "fff0000000000000"  # 2^12 expected hashes: a few CPU windows
+SITE = textwrap.dedent('''
+    import os
+    _fault = os.environ.get("DPOWBENCH_FAULT", "")
+
+    def _flip(work):
+        return work[:-1] + ("0" if work[-1] != "0" else "1")
+
+    if _fault == "hub_reply":
+        from tpu_dpow_torch.server import app as _app
+        _orig = _app.DpowServer.service_handler
+
+        async def service_handler(self, data):
+            out = await _orig(self, data)
+            if "work" in out:
+                out = dict(out, work=_flip(out["work"]))
+            return out
+
+        _app.DpowServer.service_handler = service_handler
+    elif _fault == "worker_nonce":
+        from tpu_dpow_torch.backend import torch_backend as _tb
+        _orig = _tb.TorchWorkBackend.generate
+
+        async def generate(self, request):
+            return _flip(await _orig(self, request))
+
+        _tb.TorchWorkBackend.generate = generate
+    elif _fault == "second_work":
+        import hashlib
+        from tpu_dpow_torch.server import app as _app
+        _orig = _app.DpowServer.service_handler
+        _seen = {}
+
+        def _next(block_hash, work, threshold):
+            n, h = int(work, 16) + 1, bytes.fromhex(block_hash)
+            while int.from_bytes(hashlib.blake2b(n.to_bytes(8, "little") + h,
+                                                 digest_size=8).digest(), "little") < threshold:
+                n += 1
+            return f"{n:016x}"
+
+        async def service_handler(self, data):
+            out = await _orig(self, data)
+            if "work" in out:
+                h = out["hash"]
+                if h in _seen:
+                    out = dict(out, work=_next(h, _seen[h], self.config.base_difficulty))
+                _seen[h] = out["work"]
+            return out
+
+        _app.DpowServer.service_handler = service_handler
+    elif _fault == "jax":
+        import jax  # noqa: F401
+''')
+
+
+R = "send_v2.poisson"
+#: an open-loop cell, which BENCHMARK.json leaves out (PERF.md, Open
+#: questions), entered here as a later change would add it: a Poisson mix of
+#: the frozen population on the send configuration's stack
+POISSON = {"loop": "open", "rate": 8.0, "warm_s": 1.0, "ws_share": 0.1,
+           "population": {"n_services": 1000, "profile_seed": 2040, "zipf_s": 1.1,
+                          "reuse_prob": [0.0, 0.35], "cancel_rate": [0.0, 0.08],
+                          "timeout_median": [4.0, 16.0], "timeout_sigma": 0.5,
+                          "timeout_floor": 1.0, "timeout_cap": 30.0, "hot_hash_prob": 0.02}}
+OPEN_CELL = {
+    "workloads": [{"name": R, "config": "send_v2", "traffic": "poisson", "chips": 1,
+                   "why": "x"}],
+    "end_to_end": [{"name": n, "unit": "ms", "better": "lower", "bound": 0.25,
+                    "source": "host_clock", "workloads": [R]} for n in ("p50_ms", "p95_ms")],
+    "per_layer": [{"name": n, "unit": u, "better": "lower", "source": "program_span",
+                   "layer": "x", "moves": "p50_ms", "workloads": [R]}
+                  for n, u in (("hub_stage_ms", "ms"), ("worker_stage_ms", "ms"),
+                               ("engine_overscan.latency", "x"),
+                               ("device_idle_pct.latency", "%"))],
+}
+
+
+def make_bench(tmp_path, *, rate=8.0, callers=4, timeout_cap=30.0):
+    """A benchmark file beside copies of the real configurations and mixes,
+    with the open-loop cell added, at the tiny threshold and a CPU's rate."""
+    base = tmp_path / "bench"
+    (base / "dpowbench" / "configs").mkdir(parents=True)
+    (base / "dpowbench" / "traffic").mkdir(parents=True)
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    for key, entries in OPEN_CELL.items():
+        bench[key] = bench[key] + entries
+    for entry in bench["configs"]:
+        with open(os.path.join(ROOT, entry["file"])) as f:
+            cfg = json.load(f)
+        cfg.update(difficulty=TINY, control_difficulty="ff00000000000000")
+        (base / entry["file"]).write_text(json.dumps(cfg))
+    for cell in bench["workloads"]:
+        name = cell["traffic"] + ".json"
+        if cell["traffic"] == "poisson":
+            mix = json.loads(json.dumps(POISSON))
+        else:
+            with open(os.path.join(ROOT, "dpowbench", "traffic", name)) as f:
+                mix = json.load(f)
+        mix["warm_s"] = 1.0
+        if mix["loop"] == "open":
+            mix["rate"] = rate
+            mix["population"]["timeout_cap"] = timeout_cap
+            mix["population"]["timeout_floor"] = min(1.0, timeout_cap)
+        else:
+            mix["callers"] = callers
+        (base / "dpowbench" / "traffic" / name).write_text(json.dumps(mix))
+    (base / "BENCHMARK.json").write_text(json.dumps(bench))
+    return str(base / "BENCHMARK.json"), bench
+
+
+def command(bench_path, workload, seed, seconds=4, trace=0, *extra):
+    return [sys.executable, "-m", "dpowbench.run", "--bench", bench_path, "--workload",
+            workload, "--seed", str(seed), "--seconds", str(seconds), "--trace", str(trace),
+            "--device", "cpu", *extra]
+
+
+def last_line(stdout: str) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture
+def faulty(tmp_path, monkeypatch):
+    site = tmp_path / "site"
+    (site / "jax").mkdir(parents=True)
+    (site / "jax" / "__init__.py").write_text("")
+    (site / "sitecustomize.py").write_text(SITE)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join([str(site), ROOT]))
+    return monkeypatch
+
+
+@pytest.mark.parametrize("workload,trace", [(R, 0),
+                                            ("send_v2.closed32", 0),
+                                            (R, 1)])
+def test_dpowbench_run_prints_a_well_formed_last_line(tmp_path, workload, trace):
+    bench_path, bench = make_bench(tmp_path)
+    proc = subprocess.run(command(bench_path, workload, 2**31 + 12345, 4, trace), cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert list(line)[-1] == "checks"
+    assert line["correct"] is True
+    assert line["attempted"] > 0 and line["failed"] == 0
+    assert line["device"] == {"platform": "cpu", "kind": "cpu", "count": 1,
+                              "memory_peak_bytes": 0}
+    table = "per_layer" if trace else "end_to_end"
+    want = {m["name"] for m in run.for_cell(bench[table], workload)}
+    if trace:
+        # no device trace on the CPU: the trace's readers find nothing
+        want -= {"kernel_roofline_pct", "device_idle_pct.latency", "device_idle_pct.capacity"}
+    assert set(line["metrics"]) == want
+    for m in line["metrics"].values():
+        assert m["value"] > 0 and m["unit"]
+    err = proc.stderr.strip().splitlines()
+    assert [e.split()[1] for e in err[-4:]] == list(line["checks"])
+
+
+def test_dpowbench_run_needs_the_program(tmp_path):
+    """A checkout holding only BENCHMARK.json and dpowbench/ gives no result."""
+    bare = tmp_path / "bare"
+    shutil.copytree(os.path.join(ROOT, "dpowbench"), bare / "dpowbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), bare / "BENCHMARK.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dpowbench.run", "--workload", R,
+         "--seed", "1", "--seconds", "2", "--trace", "0", "--device", "cpu"],
+        cwd=bare, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(bare)})
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+
+
+def test_dpowbench_control_comes_out_not_correct(tmp_path):
+    """The control: the hub asks for and accepts work at the configuration's
+    control_difficulty, the answers are judged at its difficulty."""
+    bench_path, _ = make_bench(tmp_path)
+    proc = subprocess.run(command(bench_path, R, 77, 4, 0, "--control"),
+                          cwd=ROOT, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert line["correct"] is False
+    assert line["checks"]["invalid_work"]["value"] > 0
+
+
+def test_dpowbench_altered_hub_answer_is_not_correct(tmp_path, faulty):
+    faulty.setenv("DPOWBENCH_FAULT", "hub_reply")
+    bench_path, _ = make_bench(tmp_path)
+    proc = subprocess.run(command(bench_path, "send_v2.closed32", 78), cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert line["correct"] is False
+    assert line["checks"]["invalid_work"]["value"] >= line["checks"]["served_min"]["value"] > 0
+
+
+def test_dpowbench_second_work_for_one_hash_is_not_correct(tmp_path, faulty):
+    faulty.setenv("DPOWBENCH_FAULT", "second_work")
+    bench_path, _ = make_bench(tmp_path, rate=12.0)
+    proc = subprocess.run(command(bench_path, R, 81, 8), cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert line["correct"] is False
+    assert line["checks"]["hashes_with_two_works"]["value"] > 0
+    assert line["checks"]["invalid_work"]["value"] == 0
+
+
+def test_dpowbench_altered_worker_answer_never_comes(tmp_path, faulty, capsys):
+    """The hub refuses the worker's altered work, so the requests time out
+    and asking again after the window brings no answer either (run in this
+    process, with the wait for late answers cut to a few seconds)."""
+    faulty.setenv("DPOWBENCH_FAULT", "worker_nonce")
+    faulty.setattr(drive, "LATE_LIMIT", 4.0)
+    bench_path, _ = make_bench(tmp_path, timeout_cap=1.0)
+    rc = run.main(command(bench_path, R, 79, 3)[3:])
+    line = last_line(capsys.readouterr().out)
+    assert rc == 0
+    assert line["correct"] is False
+    assert line["checks"]["never_answered"]["value"] > 0
+    assert line["checks"]["served_min"]["value"] == 0
+
+
+def test_dpowbench_refuses_a_run_whose_children_load_jax(tmp_path, faulty):
+    faulty.setenv("DPOWBENCH_FAULT", "jax")
+    bench_path, _ = make_bench(tmp_path)
+    proc = subprocess.run(command(bench_path, R, 80, 2), cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 3
+    assert proc.stdout.strip() == ""
+    assert "jax" in proc.stderr.strip().splitlines()[-1]
+
+
+def test_dpowbench_forbidden_names_are_compared_whole(monkeypatch):
+    monkeypatch.setitem(sys.modules, "tpu_dpow_torch_fake.sub", object())
+    monkeypatch.setitem(sys.modules, "jaxlike", object())
+    assert forbidden_modules() == []
+    monkeypatch.setitem(sys.modules, "tpu_dpow.sub", object())
+    assert forbidden_modules() == ["tpu_dpow"]
+
+
+@pytest.mark.cuda
+def test_dpowbench_cells_run_on_the_card():
+    """Each cell of BENCHMARK.json, briefly, on the card (run there with
+    ``python -m pytest dpowbench/tests -m cuda``)."""
+    torch = pytest.importorskip("torch")
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        cells = [w["name"] for w in json.load(f)["workloads"]]
+    for workload in cells:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dpowbench.run", "--workload", workload, "--seed", "5",
+             "--seconds", "5", "--trace", "0"],
+            cwd=ROOT, capture_output=True, text=True, timeout=360)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        line = last_line(proc.stdout)
+        assert line["correct"] is True and line["device"]["platform"] == "gpu"
