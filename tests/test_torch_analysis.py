@@ -202,7 +202,10 @@ def test_baseline_round_trip_in_the_port(tmp_path):
 def test_port_reads_its_own_flag_table():
     project = Project(REPO_ROOT)
     assert project.doc_path("flags.md") == f"{PORT}/docs/flags.md"
-    assert project.doc_path("observability.md") == "docs/observability.md"
+    assert project.doc_path("observability.md") == f"{PORT}/docs/observability.md"
+    assert project.doc_path("resilience.md") == "docs/resilience.md"
+    assert RefProject(REPO_ROOT).doc("observability.md") == (
+        REPO_ROOT / "docs" / "observability.md").read_text(encoding="utf-8")
     assert "`--device`" in project.doc("flags.md")
     assert RefProject(REPO_ROOT).doc("flags.md") == (REPO_ROOT / "docs" / "flags.md").read_text(
         encoding="utf-8"

@@ -9,7 +9,8 @@ Pallas kernel in interpret mode).
 * In every run mode the port has on the CPU (chunked, persistent, the fan
   of one, the mesh of one), ``dpow_engine_device_seconds`` and
   ``dpow_engine_batch_occupancy`` count exactly one observation per
-  launch, and the timeline records each launch and each solve.
+  launch, the tracer's span ring records each launch with its stamps and
+  its jobs' trace ids, and each solve marks its request's chain.
 """
 
 import asyncio
@@ -117,9 +118,12 @@ def test_families_and_counts_match_the_jax_engine(seed):
 def test_one_observation_per_launch_in_every_run_mode(mode):
     tobs.reset()
     b = TorchWorkBackend(device="cpu", sublanes=8, iters=8, **mode)
-    b.record_timeline = True
     launches = []
     reqs = burst(11, n=5)
+    tracer = tobs.get_tracer()
+    ids = {h: f"{i + 1:016x}" for i, (h, _) in enumerate(reqs)}
+    for h, trace_id in ids.items():
+        tracer.alias(h, trace_id)
 
     async def main():
         await b.setup()  # the self-test launch is not an engine launch
@@ -152,12 +156,16 @@ def test_one_observation_per_launch_in_every_run_mode(mode):
     assert snap["dpow_engine_queue_wait_seconds"]["series"]["torch"]["count"] == len(reqs)
     assert snap["dpow_engine_hashes_total"]["series"]["torch"] == b.total_hashes > 0
     assert snap["dpow_engine_hash_rate_hs"]["series"]["torch"] > 0
-    kinds = [k for k, _ in b.timeline]
-    assert kinds.count("launch") == n and kinds.count("solve") == len(reqs)
-    for kind, rec in b.timeline:
-        if kind == "launch":
-            assert rec["t_dispatch"] <= rec["t_thread"] <= rec["t_done"] <= rec["t_apply"]
-            assert rec["steps"] in launches and rec["batch"] >= 1
-        else:
-            assert rec["queue_wait"] >= 0 and rec["total"] >= rec["queue_wait"]
-            assert rec["launches"] >= 1
+    spans = [r for r in tracer.ring() if r[0] == "launch"]
+    assert len(spans) == n
+    for _name, cat, thread, t0, t1, stamps, args in spans:
+        assert cat == "engine" and thread
+        assert stamps["t_dispatch"] <= stamps["t_thread"] <= stamps["t_done"] <= stamps["t_apply"]
+        assert (t0, t1) == (stamps["t_thread"], stamps["t_done"])
+        assert args["steps"] in launches and args["batch"] >= 1
+        assert args["trace_ids"] and set(args["trace_ids"]) <= set(ids.values())
+    assert {t for s in spans for t in s[6]["trace_ids"]} == set(ids.values())
+    for trace_id in ids.values():
+        chain = tracer.get(trace_id)
+        assert [stage for stage, _ in chain] == ["pack", "device"]
+        assert chain[0][1] <= chain[1][1]

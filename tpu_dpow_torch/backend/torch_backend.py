@@ -147,10 +147,11 @@ class _Job:
     # P(no launch currently in flight solves this job); 1.0 = uncovered.
     inflight_miss: float = 1.0
     # Stage stamps (perf_counter): submission and first dispatch — the
-    # queue-wait histogram and the timeline; a job's first dispatch is also
-    # the trace's 'pack' mark.
+    # queue-wait histogram; a job's first dispatch is also the trace's
+    # 'pack' mark.
     t_submit: float = 0.0
     t_first_dispatch: float = 0.0
+    trace_id: Optional[str] = None  # the request's, named by launch spans
     applied_launches: int = 0  # launches applied that carried this job
     # Device fan: per-device shard state, by PHYSICAL device index.
     dev_bases: "Optional[list]" = None  # split policy: per-device next base
@@ -201,7 +202,8 @@ class _Launch:
     # Stage stamps, perf_counter and injectable clock: t_dispatch and the
     # inflight depth at dispatch, t_thread, t_done, t_thread_clock,
     # t_done_clock (engine families, window-time EMA, per-device rates),
-    # t_apply/batch/steps once applied (the timeline).
+    # the launch thread's name, t_apply/batch/steps once applied (the
+    # launch span on the tracer's ring).
     timing: dict = field(default_factory=dict)
     # Dispatch stamp on the injectable clock: the watchdog's deadline anchor
     # for a launch that has not polled yet.
@@ -385,14 +387,8 @@ class TorchWorkBackend(WorkBackend):
         self._closed = False
         self.total_hashes = 0
         self.total_solutions = 0
-        # Per-stage latency decomposition: when on, every applied launch
-        # appends ("launch", {t_dispatch, t_thread, t_done, t_apply, batch,
-        # steps, ...}) and every solve ("solve", {queue_wait, total,
-        # launches}) to ``timeline``. The perf_counter stamps are taken
-        # always, since the engine families below consume them;
-        # record_timeline only gates the deque.
-        self.record_timeline = False
-        self.timeline: "deque[tuple]" = deque(maxlen=1024)
+        # Every applied launch is a span on the tracer's ring (its stamps,
+        # shape and jobs' trace ids); the set-up marks its start-up phases.
         self._tracer = obs.get_tracer()
         # The engine families, named, bucketed and labelled as the JAX
         # engine's (engine="torch" where it writes "jax"): batch occupancy,
@@ -403,6 +399,15 @@ class TorchWorkBackend(WorkBackend):
         self._m_solutions = reg.counter(
             "dpow_engine_solutions_total", "Nonces found and host-validated",
             ("engine",))
+        # The part of dpow_engine_hashes_total scanned in rows whose job was
+        # already answered when their launch was applied: 'solved' by an
+        # earlier launch, or 'cancelled' (cancelled, closed or failed).
+        self._m_wasted = reg.counter(
+            "dpow_engine_wasted_hashes_total",
+            "Nonces scanned for jobs already answered when the launch was "
+            "applied, by cause", ("engine", "cause"))
+        for cause in ("solved", "cancelled"):
+            self._m_wasted.inc(0, "torch", cause)
         self._m_batch_rows = reg.histogram(
             "dpow_engine_batch_occupancy",
             "Live jobs packed per device launch (padding excluded)",
@@ -514,7 +519,10 @@ class TorchWorkBackend(WorkBackend):
         self._closed = False  # setup() after close() reopens the engine
         if self.device.type == "cuda":
             try:
+                await asyncio.to_thread(self._create_contexts)
+                self._tracer.startup_mark("cuda_context")
                 await asyncio.to_thread(self._load_kernels)
+                self._tracer.startup_mark("kernels")
             except RuntimeError as e:
                 raise WorkError(f"CUDA kernel setup failed: {e}") from e
         # Self-test: the engine must find a planted easy solution. Fan
@@ -529,6 +537,18 @@ class TorchWorkBackend(WorkBackend):
                 f"backend self-test failed "
                 f"(nonce {int(hi.flat[0]):08x}{int(lo.flat[0]):08x})"
             )
+        self._tracer.startup_mark("self_test")
+
+    def _create_contexts(self) -> None:
+        """Create the CUDA context of every card the engine launches on, on
+        its own: the first device call creates it lazily otherwise, inside
+        whichever step comes first."""
+        if self.mesh is not None:
+            cards = list(self.mesh.devices.flat)
+        else:
+            cards = self.fan or [self.device]
+        for card in cards:
+            torch.cuda.synchronize(card)
 
     def _load_kernels(self) -> None:
         """Build and load the kernel libraries; a persistent engine also
@@ -563,6 +583,7 @@ class TorchWorkBackend(WorkBackend):
             future=asyncio.get_running_loop().create_future(),
             base=0,
             t_submit=time.perf_counter(),
+            trace_id=self._tracer.id_for(key),
         )
         # An assigned nonce range pins the scan base to its start (a soft
         # hint: the scan runs on past its end). Without one, a random base
@@ -1309,6 +1330,7 @@ class TorchWorkBackend(WorkBackend):
                 if timing is not None:
                     timing["t_thread"] = time.perf_counter()
                     timing["t_thread_clock"] = self._clock.time()
+                    timing["thread"] = threading.current_thread().name
                 out = self._launch(params_batch, steps, slot, devices)
                 if timing is not None:
                     timing["t_done"] = time.perf_counter()
@@ -1628,8 +1650,7 @@ class TorchWorkBackend(WorkBackend):
             self._m_device_seconds.observe(
                 max(0.0, timing["t_done"] - timing["t_thread"]), "torch"
             )
-        if self.record_timeline:
-            self.timeline.append(("launch", timing))
+        self._tracer.launch(timing, [j.trace_id for j in rec.jobs if j.trace_id])
         c = rec.control
         windows_ran = rec.steps
         if c is not None:
@@ -1667,11 +1688,14 @@ class TorchWorkBackend(WorkBackend):
             job.inflight_miss = min(1.0, job.inflight_miss / f)
             job.applied_launches += 1
         if rec.dev_bases is not None:
-            applied_hashes = self._apply_fan_rows(rec, lo_arr, hi_arr)
+            applied_hashes, wasted = self._apply_fan_rows(rec, lo_arr, hi_arr)
         else:
-            applied_hashes = self._apply_plain_rows(rec, lo_arr, hi_arr)
+            applied_hashes, wasted = self._apply_plain_rows(rec, lo_arr, hi_arr)
         self.total_hashes += applied_hashes
         self._m_hashes.inc(applied_hashes, "torch")
+        for cause, n in wasted.items():
+            if n:
+                self._m_wasted.inc(n, "torch", cause)
         if timing.get("t_done", 0.0) > timing.get("t_thread", 0.0):
             self._m_hash_rate.set(
                 applied_hashes / (timing["t_done"] - timing["t_thread"]), "torch"
@@ -1690,15 +1714,19 @@ class TorchWorkBackend(WorkBackend):
         # one poll interval instead of grinding on.
         self._control_cancel_job(job)
         job.future.set_result(work)
-        if self.record_timeline and job.t_submit:
-            self.timeline.append((
-                "solve",
-                {
-                    "queue_wait": job.t_first_dispatch - job.t_submit,
-                    "total": time.perf_counter() - job.t_submit,
-                    "launches": job.applied_launches,
-                },
-            ))
+
+    @staticmethod
+    def _answered(job: _Job) -> Optional[str]:
+        """Why ``job`` needs no more nonces, as a launch carrying it is
+        applied: 'solved' (its future holds work from an earlier launch),
+        'cancelled' (cancelled, closed or failed), or None: it still needs
+        them."""
+        fut = job.future
+        if not fut.done():
+            return None
+        if fut.cancelled() or fut.exception() is not None:
+            return "cancelled"
+        return "solved"
 
     def _invalid_work(self, job: _Job, work: str, value: int, launched: int) -> None:
         """Device/host disagreement: a real bug, surfaced to the waiter."""
@@ -1709,10 +1737,12 @@ class TorchWorkBackend(WorkBackend):
             )
         )
 
-    def _apply_plain_rows(self, rec: _Launch, lo_arr, hi_arr) -> int:
+    def _apply_plain_rows(self, rec: _Launch, lo_arr, hi_arr) -> tuple:
         """Apply a plain or ganged launch's rows; returns the nonces they
-        scanned."""
+        scanned, and of those the ones scanned for jobs already answered, by
+        cause."""
         applied_hashes = 0
+        wasted = {"solved": 0, "cancelled": 0}
         c = rec.control
         for i, (job, launched, base, epoch, lo, hi) in enumerate(zip(
             rec.jobs, rec.launched_difficulty, rec.bases, rec.epochs,
@@ -1726,6 +1756,7 @@ class TorchWorkBackend(WorkBackend):
                 base = base if eb is None else eb
                 launched = launched if ed is None else ed
                 epoch = c.effective_epoch(i, epoch)
+            answered = self._answered(job)
             nonce = (int(hi) << 32) | int(lo)
             if nonce == _MASK64:  # span dry: base already advanced at dispatch
                 span_i = rec.span
@@ -1734,9 +1765,13 @@ class TorchWorkBackend(WorkBackend):
                     # device actually ran, not the full span.
                     span_i = min(rec.span, c.windows_run(i, rec.steps) * self.chunk)
                 applied_hashes += span_i
+                if answered is not None:
+                    wasted[answered] += span_i
                 continue
-            applied_hashes += ((nonce - base) & _MASK64) + 1
-            if job.future.done():
+            scanned = ((nonce - base) & _MASK64) + 1
+            applied_hashes += scanned
+            if answered is not None:
+                wasted[answered] += scanned
                 continue  # cancelled/solved while the launch was in flight
             work = search.work_hex_from_nonce(nonce)
             value = nc.work_value(job.block_hash, work)
@@ -1750,21 +1785,23 @@ class TorchWorkBackend(WorkBackend):
                     job.set_base(nonce + 1)
             else:
                 self._invalid_work(job, work, value, launched)
-        return applied_hashes
+        return applied_hashes, wasted
 
-    def _apply_fan_rows(self, rec: _Launch, lo_arr, hi_arr) -> int:
+    def _apply_fan_rows(self, rec: _Launch, lo_arr, hi_arr) -> tuple:
         """Apply one fanned launch: winner election + device attribution.
 
         ``lo_arr``/``hi_arr`` are per-device absolute nonces [n_dev, B].
         Per row, the hit scanned in the fewest nonces from its device's
         launch base wins (deterministic, the mesh election's order); the
         win is attributed to that device: its scan counter and scan clock
-        produce the EMA sample. Returns the nonces every member scanned.
+        produce the EMA sample. Returns the nonces every member scanned, and
+        of those the ones scanned for jobs already answered, by cause.
         """
         fan_map = rec.fan_map or list(range(len(self.fan)))
         n = len(fan_map)  # launch slices; fan_map[s] is the physical device
         span_dev = rec.span // n
         per_slice_scanned = [0] * n
+        wasted = {"solved": 0, "cancelled": 0}
         c = rec.control
         for i, (job, launched, bases, epoch) in enumerate(zip(
             rec.jobs, rec.launched_difficulty, rec.dev_bases, rec.epochs
@@ -1799,6 +1836,9 @@ class TorchWorkBackend(WorkBackend):
                 row_scanned[s] = local + 1
                 cands.append((local, s, nonce))
             hit_slices = {s for _l, s, _n in cands}
+            answered = self._answered(job)
+            if answered is not None:
+                wasted[answered] += sum(row_scanned)
             for s in range(n):
                 d = fan_map[s]
                 per_slice_scanned[s] += row_scanned[s]
@@ -1810,7 +1850,7 @@ class TorchWorkBackend(WorkBackend):
                     if c is not None and s not in hit_slices:
                         credit = max(0, credit - c.applied_at_k(i, s) * self.chunk_per_shard)
                     job.dev_scanned[d] += credit
-            if job.future.done() or not cands:
+            if answered is not None or not cands:
                 continue
             cands.sort()  # fewest-nonces-scanned first, slice as tiebreak
             for local, s, nonce in cands:
@@ -1835,7 +1875,7 @@ class TorchWorkBackend(WorkBackend):
                     self._invalid_work(job, work, value, launched_dev[s])
                     break
         self._fan_update_device_metrics(rec, per_slice_scanned)
-        return sum(per_slice_scanned)
+        return sum(per_slice_scanned), wasted
 
     def _attribute_win(self, job: _Job, d: int, epoch: int) -> None:
         """Fold one win into device d's EMA on ITS scan clock."""

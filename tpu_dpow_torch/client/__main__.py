@@ -10,6 +10,7 @@ from __future__ import annotations
 import asyncio
 import socket
 
+from .. import obs
 from ..transport import transport_from_uri
 from ..utils import maybe_init_distributed
 from ..utils.logging import get_logger
@@ -18,6 +19,9 @@ from .config import parse_args
 
 
 async def amain(argv=None) -> None:
+    # The interpreter phase ends here: process start -> this entry.
+    obs.get_tracer().startup_begin(obs.process_start())
+    obs.gcwatch.install()
     maybe_init_distributed()
     config = parse_args(argv)
     get_logger("tpu_dpow_torch.client", file_path=config.log_file)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import time
 import traceback
 from collections import OrderedDict
 from typing import Optional
@@ -53,7 +54,13 @@ class DpowClient:
         # must be FakeClock-drivable or chaos tests silently skip it.
         self.clock = clock or SystemClock()
         if backend is None:
+            # Inside the broker_connect phase (amain builds the client
+            # first): a span of its own shows the engine object's share,
+            # torch's import and the CUDA runtime's start included.
+            t0 = time.perf_counter()
             backend = self._build_backend(config)
+            obs.get_tracer().record("engine_object", t0, time.perf_counter(),
+                                    cat="startup", thread="startup")
         # The handler's in-flight cap must exceed the engine's batch size or
         # the batched launch can never fill (the queue would starve it at 8
         # like the reference's one-at-a-time worker dialogue); 2x keeps the
@@ -175,7 +182,13 @@ class DpowClient:
         self._tracer.mark_hash(request.block_hash, "result")
 
     async def setup(self) -> None:
+        # Start-up phases (obs/trace.py): each mark ends one; the engine
+        # marks cuda_context, kernels and self_test inside its setup(). The
+        # clock opens in amain at the process's start, or here.
+        tracer = self._tracer
+        tracer.startup_begin()
         await self.transport.connect()
+        tracer.startup_mark("broker_connect")
         await self.transport.subscribe("heartbeat", qos=QOS_0)
         # Startup gate: a heartbeat must arrive promptly or the server is
         # down and there is no point joining (reference :115-123).
@@ -193,6 +206,7 @@ class DpowClient:
         # its gauge must clear here, not linger until the first loop tick.
         self._server_online = True
         self._m_heartbeat_stale.set(0.0)
+        tracer.startup_mark("heartbeat_wait")
         for work_type in self.config.work_type.topics:
             await self.transport.subscribe(f"work/{work_type}", qos=QOS_0)
             await self.transport.subscribe(f"cancel/{work_type}", qos=QOS_1)
@@ -208,10 +222,22 @@ class DpowClient:
             await self.transport.subscribe(
                 f"client/{self.config.payout_address}", qos=QOS_1
             )
+        tracer.startup_mark("subscribe")
         await self.work_handler.start()
+        tracer.startup_mark("self_test")
         if self.config.fleet:
             await self._announce()
+        tracer.startup_mark("announce")
         await self._start_metrics_app()
+        tracer.startup_mark("metrics_app")
+        phases = tracer.startup_done()
+        if phases is not None:
+            # One line with every phase: an untraced run's split stays in
+            # the worker's log.
+            logger.info(
+                "start-up %.3f s: %s", sum(phases.values()),
+                ", ".join(f"{p} {s:.3f}" for p, s in phases.items()),
+            )
         # One startup line (reference client logs its connection status): a
         # healthy worker is otherwise silent until the first stats snapshot,
         # indistinguishable from one wedged in setup. Credentials stripped —
@@ -225,16 +251,17 @@ class DpowClient:
         )
 
     async def _start_metrics_app(self) -> None:
-        """Serve GET /metrics for this worker (config.metrics_port >= 0;
-        0 binds an ephemeral port, recorded in self.metrics_port). The
-        server scrapes its upcheck port; a worker fleet scrapes here —
-        engine batch occupancy, H/s, queue depth, per-stage spans."""
+        """Serve GET /metrics and GET /spans for this worker
+        (config.metrics_port >= 0; 0 binds an ephemeral port, recorded in
+        self.metrics_port). The server scrapes its upcheck port; a worker
+        fleet scrapes here — engine batch occupancy, H/s, queue depth,
+        per-stage spans, and the launch spans on the Unix clock."""
         if self.config.metrics_port < 0 or self._metrics_runner is not None:
             return
         from aiohttp import web
 
         app = web.Application()
-        obs.add_metrics_route(app)
+        obs.add_metrics_route(app, process="worker")
         runner = web.AppRunner(app)
         await runner.setup()
         site = web.TCPSite(runner, self.config.metrics_host, self.config.metrics_port)

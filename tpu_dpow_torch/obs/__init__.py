@@ -9,9 +9,13 @@ Counterpart of ``tpu_dpow/obs/`` (its own copy, sharing no state with it):
               resources (the persistent run mode's control slots);
   trace     — span API stamping one WorkRequest through the pipeline
               (dispatch → pack → device → result on the worker), the trace
-              id riding the work/result payloads;
+              id riding the work/result payloads; the ring of host spans
+              (engine launches, start-up phases, collections) and their
+              Chrome-trace export on the Unix clock;
+  gcwatch   — the collector's pauses (``dpow_process_gc_seconds``);
   prom      — Prometheus text-format v0.0.4 renderer + parser and the
-              aiohttp GET /metrics route (the worker's metrics port).
+              aiohttp GET /metrics and GET /spans routes (the worker's
+              metrics port, the hub's upcheck port).
 
 The exposition text is byte-identical to ``tpu_dpow``'s for the same
 registry operations.
@@ -35,7 +39,16 @@ from .registry import (  # noqa: F401
     get_registry,
 )
 from .ledger import LEDGER, LeakLedger, get_ledger  # noqa: F401
-from .trace import STAGES, Tracer, get_tracer, is_trace_id, new_trace_id  # noqa: F401
+from .trace import (  # noqa: F401
+    STAGES,
+    STARTUP_PHASES,
+    Tracer,
+    get_tracer,
+    is_trace_id,
+    new_trace_id,
+    process_start,
+)
+from . import gcwatch  # noqa: F401
 from .prom import add_metrics_route, histogram_quantile, parse_text, render  # noqa: F401
 
 

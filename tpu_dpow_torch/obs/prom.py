@@ -7,7 +7,9 @@ so the repo's own tooling consumes the same surface operators scrape —
 no privileged side-channel.
 
 Mounting: ``add_metrics_route(app)`` hangs GET /metrics off any aiohttp
-app — the server's upcheck app and the client's metrics app both use it.
+app — the server's upcheck app and the client's metrics app both use it —
+and GET /spans beside it: the tracer's span ring and request chains as
+Chrome-trace JSON on the Unix clock (obs/trace.py ``chrome_trace``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 from .registry import Histogram, Registry, get_registry
+from .trace import get_tracer
 
 
 def _escape_help(s: str) -> str:
@@ -169,12 +172,18 @@ def histogram_quantile(
     return lower
 
 
-def add_metrics_route(app, registry: Optional[Registry] = None) -> None:
-    """Mount GET /metrics (and /metrics/) on an aiohttp application."""
+def add_metrics_route(app, registry: Optional[Registry] = None, process: str = "") -> None:
+    """Mount GET /metrics (and /metrics/) and GET /spans (and /spans/) on
+    an aiohttp application; ``process`` names the process in the spans."""
     from aiohttp import web
 
     async def metrics_handler(request: "web.Request") -> "web.Response":
         return web.Response(text=render(registry), content_type="text/plain")
 
+    async def spans_handler(request: "web.Request") -> "web.Response":
+        return web.json_response(get_tracer().chrome_trace(process))
+
     app.router.add_get("/metrics", metrics_handler)
     app.router.add_get("/metrics/", metrics_handler)
+    app.router.add_get("/spans", spans_handler)
+    app.router.add_get("/spans/", spans_handler)

@@ -151,18 +151,34 @@ class Histogram(_Family):
 
     def observe(self, value: float, *labels: str) -> None:
         with self._lock:
-            key = self._key(tuple(labels))
-            series = self._series.get(key)
-            if series is None:
-                series = self._series[key] = _HistogramSeries(len(self.buckets) + 1)
-            i = len(self.buckets)  # +Inf slot
-            for j, edge in enumerate(self.buckets):
-                if value <= edge:
-                    i = j
-                    break
-            series.counts[i] += 1
-            series.total += value
-            series.count += 1
+            self._observe_locked(value, tuple(labels))
+
+    def observe_pending(self, pending) -> None:
+        """Observe every ``(value, label...)`` tuple queued in the deque
+        ``pending`` if the lock is free now; else leave them queued. For
+        callers that must never wait on the lock (obs/gcwatch.py)."""
+        if not self._lock.acquire(blocking=False):
+            return
+        try:
+            while pending:
+                value, *labels = pending.popleft()
+                self._observe_locked(value, tuple(labels))
+        finally:
+            self._lock.release()
+
+    def _observe_locked(self, value: float, labels: Tuple[str, ...]) -> None:
+        key = self._key(labels)
+        series = self._series.get(key)
+        if series is None:
+            series = self._series[key] = _HistogramSeries(len(self.buckets) + 1)
+        i = len(self.buckets)  # +Inf slot
+        for j, edge in enumerate(self.buckets):
+            if value <= edge:
+                i = j
+                break
+        series.counts[i] += 1
+        series.total += value
+        series.count += 1
 
     def collect(self) -> Dict[Tuple[str, ...], dict]:
         """Per-series {"buckets": [(le, cumulative), ...], "sum", "count"}."""

@@ -22,19 +22,55 @@ Components that know only a block hash (the engines, the work handler) mark
 through the hash alias (``mark_hash``) — the id→stages store and the
 hash→id alias table are both bounded LRU so an abandoned trace can never
 leak (the reference has nothing to leak: it measures nothing).
+
+Beside the request chains the tracer keeps a bounded ring of host spans,
+always on: one per engine launch (dispatch, launch-thread start, done and
+apply, batch, steps, and the trace ids of the jobs it carried), one per
+start-up phase, one per long or full collection (obs/gcwatch.py). Their
+stamps are ``perf_counter`` seconds, taken where the work happens; this
+module converts them to Unix time with one anchor pair read when the
+tracer is made. ``chrome_trace()`` writes the ring and the request chains
+as one Chrome-trace object on the Unix clock (served at ``GET /spans``,
+obs/prom.py), so a worker's page, its hub's page and a ``torch.profiler``
+trace shifted by its ``baseTimeNanoseconds`` share one time axis.
+
+Start-up phases (``startup_begin`` / ``startup_mark`` / ``startup_done``)
+are contiguous: each runs from the end of the one before it, a phase a
+process never marks reads 0, and the first one starts at the process's
+start as the OS records it (``process_start``). They feed
+``dpow_client_startup_seconds{phase}``.
 """
 
 from __future__ import annotations
 
+import os
 import secrets
 import threading
 import time
-from collections import OrderedDict
-from typing import List, Optional, Tuple
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Tuple
 
 from .registry import Histogram, Registry, get_registry
 
 MAX_TRACES = 2048
+# Host spans the ring keeps (launches, start-up phases, collections): at a
+# few hundred launches a second, the last several seconds of a busy worker.
+MAX_SPANS = 8192
+
+STARTUP_GAUGE = "dpow_client_startup_seconds"
+# A worker's set-up, in the order it runs (client/app.py DpowClient.setup,
+# the engine's setup() inside it).
+STARTUP_PHASES = (
+    "interpreter",     # process start -> the entry point (imports included)
+    "broker_connect",  # flags, the engine object, the broker connection
+    "heartbeat_wait",  # the heartbeat subscription and the first heartbeat
+    "subscribe",       # work, cancel and payout subscriptions
+    "cuda_context",    # the engine's CUDA context, created on its own
+    "kernels",         # kernel libraries built (nvcc) or loaded
+    "self_test",       # the engine's planted-solution launch
+    "announce",        # the fleet announce
+    "metrics_app",     # the /metrics and /spans listener
+)
 
 STAGE_HISTOGRAM = "dpow_request_stage_seconds"
 
@@ -66,12 +102,41 @@ def is_trace_id(value: str) -> bool:
     )
 
 
+def process_start() -> Optional[float]:
+    """This process's start as the OS records it, on the ``perf_counter``
+    clock, or None where the OS does not say. Linux: ``starttime`` in
+    /proc/self/stat, in clock ticks since boot, against the boot clock now
+    (10 ms steps; /proc/stat's ``btime`` would add its whole-second
+    truncation)."""
+    try:
+        with open("/proc/self/stat") as f:
+            # the command name may hold spaces: fields resume after ')'
+            fields = f.read().rsplit(")", 1)[1].split()
+        started = int(fields[19]) / os.sysconf("SC_CLK_TCK")
+        age = time.clock_gettime(time.CLOCK_BOOTTIME) - started
+    except (OSError, ValueError, IndexError, AttributeError):
+        return None
+    return time.perf_counter() - max(0.0, age)
+
+
 class Tracer:
-    def __init__(self, registry: Optional[Registry] = None):
+    def __init__(self, registry: Optional[Registry] = None, max_spans: int = MAX_SPANS):
         self._lock = threading.Lock()
         self._traces: "OrderedDict[str, List[Tuple[str, float]]]" = OrderedDict()
         self._aliases: "OrderedDict[str, str]" = OrderedDict()
         self._registry = registry
+        # (name, cat, thread, t0, t1, stamps, args), perf_counter seconds.
+        # deque.append is atomic: a collector callback (obs/gcwatch.py) can
+        # record without a lock that the thread it interrupted may hold.
+        self._ring: "deque[tuple]" = deque(maxlen=max_spans)
+        # The one anchor pair: perf_counter -> Unix nanoseconds.
+        self._anchor_unix_ns = time.time_ns()
+        self._anchor_perf_ns = time.perf_counter_ns()
+        self._startup_t: Optional[float] = None  # end of the last phase
+        self._startup_last: Optional[str] = None
+        self._startup_open = False
+        self._startup_closed = False
+        self._startup: Dict[str, Tuple[float, float]] = {}  # phase: (start, end)
 
     def _histogram(self) -> Histogram:
         return (self._registry or get_registry()).histogram(
@@ -156,10 +221,156 @@ class Tracer:
             prev = t
         return out
 
+    # -- the span ring -----------------------------------------------------
+
+    def record(self, name: str, t0: float, t1: float, *, cat: str = "span",
+               thread: str = "", stamps: Optional[dict] = None,
+               args: Optional[dict] = None) -> None:
+        """One host span [t0, t1] (perf_counter seconds). ``stamps`` are
+        further perf_counter instants, written out on the Unix clock."""
+        self._ring.append((name, cat, thread, t0, t1, stamps, args))
+
+    def launch(self, timing: dict, trace_ids: list) -> None:
+        """One applied engine launch: the span its thread ran, [t_thread,
+        t_done], with the dispatch and apply stamps around it, its shape,
+        and the trace ids of the jobs it carried (the requests that caused
+        it)."""
+        t0 = timing.get("t_thread", timing["t_dispatch"])
+        t1 = timing.get("t_done", t0)
+        self.record(
+            "launch", t0, t1, cat="engine", thread=timing.get("thread", ""),
+            stamps={k: timing[k] for k in ("t_dispatch", "t_thread", "t_done", "t_apply")
+                    if k in timing},
+            args={"batch": timing.get("batch"), "steps": timing.get("steps"),
+                  "trace_ids": trace_ids},
+        )
+
+    def ring(self) -> List[tuple]:
+        """The ring's records, oldest first."""
+        while True:
+            try:
+                return list(self._ring)
+            except RuntimeError:  # appended to while copied: copy again
+                continue
+
+    def unix_ns(self, t: float) -> int:
+        """A perf_counter stamp on the Unix clock, in nanoseconds."""
+        return self._anchor_unix_ns + round(t * 1e9) - self._anchor_perf_ns
+
+    # -- start-up phases ------------------------------------------------------
+
+    def _startup_gauge(self):
+        return (self._registry or get_registry()).gauge(
+            STARTUP_GAUGE,
+            "Seconds each start-up phase of this worker took, contiguous "
+            "from the process's start to the end of its set-up",
+            ("phase",),
+        )
+
+    def startup_begin(self, process_t0: Optional[float] = None) -> None:
+        """Open the start-up clock once per process: with the process's
+        start (``process_start()``) the ``interpreter`` phase ends now;
+        without one the phases start now and ``interpreter`` reads 0."""
+        with self._lock:
+            if self._startup_open or self._startup_closed:
+                return
+            self._startup_open = True
+            self._startup_t = time.perf_counter() if process_t0 is None else process_t0
+        if process_t0 is not None:
+            self.startup_mark("interpreter")
+
+    def startup_mark(self, phase: str) -> None:
+        """End ``phase`` now. Phases skipped since the last mark read 0; a
+        second mark of the last phase extends it. A no-op while the clock
+        is not open, so an engine set up outside a worker records nothing,
+        and for a phase that set-up has already passed (a second engine of
+        a failover chain): tracing never breaks the data path."""
+        now = time.perf_counter()
+        with self._lock:
+            if not self._startup_open:
+                return
+            i = STARTUP_PHASES.index(phase)
+            last = -1 if self._startup_last is None else STARTUP_PHASES.index(self._startup_last)
+            if i < last:
+                return
+            t0 = self._startup.get(phase, (self._startup_t, now))[0]
+            self._startup[phase] = (t0, now)
+            self._startup_t, self._startup_last = now, phase
+
+    def startup_done(self) -> Optional[Dict[str, float]]:
+        """Close the start-up clock and return every phase in order, 0 where
+        unmarked, also set on ``dpow_client_startup_seconds``; None where
+        the clock was not open. Later calls and marks change nothing (a
+        reconnect's set-up is not a start-up)."""
+        with self._lock:
+            if not self._startup_open:
+                return None
+            self._startup_open, self._startup_closed = False, True
+            bounds = dict(self._startup)
+        gauge = self._startup_gauge()
+        phases = {}
+        for phase in STARTUP_PHASES:
+            t0, t1 = bounds.get(phase, (0.0, 0.0))
+            phases[phase] = t1 - t0
+            gauge.set(phases[phase], phase)
+            if phase in bounds:
+                self.record(phase, t0, t1, cat="startup", thread="startup")
+        return phases
+
+    # -- export ---------------------------------------------------------------
+
+    def chrome_trace(self, process: str = "") -> dict:
+        """The ring and the request chains as a Chrome-trace object on the
+        Unix clock (``ts``/``dur`` in µs): launches on their launch
+        thread's row, start-up phases and collections on rows of their
+        own, each request mark an instant carrying its trace id. The
+        ``requests`` key holds the chains as [stage, Unix ns] lists by
+        trace id, for joining two processes' pages."""
+        pid = os.getpid()
+        rows: Dict[str, int] = {}
+        events: list = []
+
+        def row(name: str) -> int:
+            if name not in rows:
+                rows[name] = len(rows) + 1
+                events.append({"name": "thread_name", "ph": "M", "pid": pid,
+                               "tid": rows[name], "args": {"name": name}})
+            return rows[name]
+
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "args": {"name": process or f"pid {pid}"}})
+        for name, cat, thread, t0, t1, stamps, args in self.ring():
+            ev = {"name": name, "cat": cat, "ph": "X", "pid": pid,
+                  "tid": row(thread or cat), "ts": self.unix_ns(t0) / 1e3,
+                  "dur": max(0.0, t1 - t0) * 1e6}
+            out = dict(args or {})
+            for k, v in (stamps or {}).items():
+                out[k + "_us"] = self.unix_ns(v) / 1e3
+            if out:
+                ev["args"] = out
+            events.append(ev)
+        with self._lock:
+            chains = [(tid, list(marks)) for tid, marks in self._traces.items() if marks]
+        requests = {}
+        for trace_id, marks in chains:
+            requests[trace_id] = [[stage, round(t * 1e9)] for stage, t in marks]
+            for stage, t in marks:
+                events.append({"name": stage, "cat": "request", "ph": "i", "s": "t",
+                               "pid": pid, "tid": row("requests"), "ts": t * 1e6,
+                               "args": {"trace_id": trace_id}})
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"clock": "unix", "ts_unit": "us", "pid": pid,
+                              "process": process},
+                "requests": requests}
+
     def reset(self) -> None:
         with self._lock:
             self._traces.clear()
             self._aliases.clear()
+            self._ring.clear()
+            self._startup.clear()
+            self._startup_t = self._startup_last = None
+            self._startup_open = self._startup_closed = False
 
 
 # Process-wide tracer, same rationale as the default registry: an in-process

@@ -25,7 +25,9 @@ Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, started
 together), and loaded with ``ctypes``. A library's name carries a hash of its
 sources and the compile command, so an edit rebuilds it and concurrent
-builds never load a half-written file.
+builds never load a half-written file. ``dpow_engine_kernel_builds_total
+{library}`` counts the builds this process ran (0 where it loaded the
+libraries from the build directory).
 
 A CUDA tensor goes to the kernel or raises. A CPU tensor goes to the plain
 PyTorch version (``ops/search.py``, ``ops/runloop.py``); nothing else does.
@@ -45,6 +47,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from . import control, search
 
 DEFAULT_SUBLANES = 32
@@ -105,6 +108,13 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
+def _builds_counter():
+    return obs.get_registry().counter(
+        "dpow_engine_kernel_builds_total",
+        "Kernel libraries this process compiled with nvcc (0: loaded as "
+        "built)", ("library",))
+
+
 def build_libraries(names=tuple(LIBRARIES)) -> Dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` per source, all started together; return name -> path.
@@ -133,6 +143,7 @@ def build_libraries(names=tuple(LIBRARIES)) -> Dict[str, str]:
             with open(todo[name] + ".log", "w") as f:
                 f.write(stdout + stderr)
             os.replace(tmp, todo[name])
+            _builds_counter().inc(1, name)
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:
@@ -194,6 +205,8 @@ def load_libraries() -> Dict[str, ctypes.CDLL]:
     with _lock:
         missing = [name for name in LIBRARIES if name not in _libs]
         if missing:
+            for name in missing:
+                _builds_counter().inc(0, name)  # the series reads 0, not absent
             paths = build_libraries(tuple(missing))
             for name in missing:
                 lib = ctypes.CDLL(paths[name])

@@ -8,6 +8,7 @@ tpu_dpow_torch.scripts.<name>``:
   payouts         — proportional reward payouts   (reference scripts/payouts.py)
   check_latency   — passive transport latency probe (reference scripts/check_latency.py)
   chaos_demo      — scripted drop/fail/recover walkthrough of the resilience layer
+  overlay_spans   — a process's GET /spans laid over its torch.profiler trace
 
 All of them talk to the same Store seam the server uses: pass
 ``--store redis://...`` for a live deployment, or the path of a MemoryStore

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import asyncio
 
+from .. import obs
 from ..store import get_store
 from ..transport import default_users, transport_from_uri
 from ..transport.broker import Broker
@@ -26,6 +27,7 @@ from .config import parse_args
 
 
 async def amain(argv=None) -> None:
+    obs.gcwatch.install()
     config = parse_args(argv)
     logger = get_logger("tpu_dpow_torch.server", file_path=config.log_file, debug=config.debug)
 

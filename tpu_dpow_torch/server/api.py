@@ -199,7 +199,7 @@ def build_apps(server: DpowServer, broker=None):
     # Prometheus scrape surface, on the port that is already the internal
     # health face (never the public service port): request/result/dispatch
     # counters, per-stage span histograms, engine + broker internals.
-    obs.add_metrics_route(upcheck_app)
+    obs.add_metrics_route(upcheck_app, process="hub")
 
     blocks_app = web.Application()
     blocks_app.router.add_post("/block/", block_cb_handler)
