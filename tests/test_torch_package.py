@@ -18,7 +18,9 @@
   version bit for bit — the persistent run kernel with and without a
   scripted control channel, its LaunchControl bookkeeping included, and with
   strided windows — each launch moves its counter by one, and the fan and
-  mesh functions over every visible card equal their plain versions.
+  mesh functions over every visible card equal their plain versions. The
+  search kernel counts the nonces each row ran, and a row whose out word is
+  lowered mid-launch from another stream stops short of its span.
 """
 
 import asyncio
@@ -31,6 +33,7 @@ import shutil
 import struct
 import subprocess
 import sys
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -386,6 +389,61 @@ def test_kernel_matches_plain_on_the_card(nblocks):
     assert int(single) == int(search.search_chunk(params[2], chunk_size=8 * 128 * 16))
     with pytest.raises(TypeError):
         cuda_kernel.cuda_search_chunk_batch(params.to(torch.int64), **geo)
+
+
+@pytest.mark.cuda
+def test_kernel_counts_what_rows_ran_and_stops_a_row_lowered_mid_launch():
+    """With ``scanned`` the offsets stay the plain version's (and those of
+    the launch without it, scanned == nullptr); a dry row counts exactly
+    its span, a hit row at least its offset + 1. A RowStopper lowering one
+    row's out word from its own stream while the kernel runs stops that
+    row short of its span, and leaves every other row as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    params = search.params_from_numpy(seeded_rows(), "cuda")
+    rows = params.shape[0]
+    geo = dict(sublanes=8, iters=16, nblocks=3, group=2)
+    span = cuda_kernel.window(**geo)
+    bare = cuda_kernel.cuda_search_chunk_batch(params, **geo)
+    out = torch.full((rows,), -1, dtype=torch.int32, device="cuda")
+    scanned = torch.zeros(rows, dtype=torch.int32, device="cuda")
+    assert cuda_kernel.cuda_search_chunk_batch(params, out=out, scanned=scanned, **geo) is out
+    torch.cuda.synchronize()
+    plain = search.search_chunk_batch(params, chunk_size=span)
+    assert torch.equal(bare, plain) and torch.equal(out, plain)
+    for off, n in zip(search.offsets_to_numpy(out), search.offsets_to_numpy(scanned)):
+        assert n == span if off == search.SENTINEL else off + 1 <= n <= span
+
+    # Four rows of 2^28 nonces (~0.1 s): two hit early, two are dry; row 1
+    # is stopped ~30 ms in.
+    rng = np.random.default_rng(16)
+    hard = [(rng.bytes(32), 0xFFFC000000000000, int(rng.integers(0, 1 << 62))),
+            (rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 62))),
+            (rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 62))),
+            (rng.bytes(32), 0xFFFC000000000000, (1 << 64) - 5000)]
+    params = search.params_from_numpy(
+        np.stack([search.pack_params(h, d, b) for h, d, b in hard]), "cuda")
+    geo = dict(sublanes=32, iters=1024, nblocks=64, group=8)
+    span = cuda_kernel.window(**geo)
+    want = search.offsets_to_numpy(cuda_kernel.cuda_search_chunk_batch(params, **geo))
+    out = torch.full((4,), -1, dtype=torch.int32, device="cuda")
+    scanned = torch.zeros(4, dtype=torch.int32, device="cuda")
+    stopper = cuda_kernel.RowStopper(out)
+    cuda_kernel.cuda_search_chunk_batch(params, out=out, scanned=scanned, **geo)
+    time.sleep(0.03)
+    stopper.stop(1)
+    stopper.drain()
+    torch.cuda.synchronize()
+    got, ran = search.offsets_to_numpy(out), search.offsets_to_numpy(scanned)
+    assert got[1] == 0 and 0 < ran[1] < span
+    assert ran[2] == span and got[2] == want[2] == search.SENTINEL
+    for r in (0, 3):
+        h, d, base = hard[r]
+        assert got[r] == want[r] < span and ran[r] >= got[r] + 1
+        assert ref_value(base + int(got[r]), h) >= d
+        assert all(ref_value(base + o, h) < d for o in range(int(got[r])))
+    one = search.search_chunk_batch(params[[0, 3]], chunk_size=span)
+    assert search.offsets_to_numpy(one).tolist() == [got[0], got[3]]
 
 
 class TickClock:

@@ -11,7 +11,10 @@ and the fan in parallel/:
     padded to a power of two with difficulty-0 rows that hit at offset 0 and
     drain after one stride. Concurrent requests for one hash share one job.
   * Cancels are lane masking: a cancelled job is dropped from the next pack;
-    a launch already in flight finishes and its result is discarded.
+    a launch already in flight finishes and its result is discarded. A
+    plain chunked launch on the card is the exception: the rows of a job
+    answered (solved by an earlier launch, or cancelled) while it runs are
+    stopped mid-launch (``_stop_rows``), and counted by what they ran.
   * Run length adapts to difficulty: a launch covers up to ``run_steps``
     consecutive windows (the kernel's span is ``nblocks * steps`` windows),
     quantized on a x4 ladder (x2 with ``step_ladder="x2"``). Jobs are
@@ -176,6 +179,42 @@ class _Job:
         self.inflight_miss = 1.0
 
 
+class _RowStops:
+    """The stop channel of one plain chunked launch on the card, made at
+    dispatch. The launch thread opens it with a RowStopper once the
+    launch's out words are filled on the card, and closes it after their
+    readback, handing over the kernel's per-row ``scanned`` counts. Rows
+    are stopped only while it is open, and closing waits for every stop
+    written, so no write outlives the launch's buffer."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._stopper = None  # a RowStopper while open
+        self.rows: set = set()  # rows stopped while open
+        self.scanned: Optional[np.ndarray] = None  # uint32[B] once closed
+
+    def open(self, stopper) -> None:
+        with self._lock:
+            self._stopper = stopper
+
+    def stop(self, row: int) -> bool:
+        """Stop ``row``; False where the handle is not open or the row
+        was stopped already."""
+        with self._lock:
+            if self._stopper is None or row in self.rows:
+                return False
+            self._stopper.stop(row)
+            self.rows.add(row)
+            return True
+
+    def close(self, scanned: Optional[np.ndarray]) -> None:
+        with self._lock:
+            stopper, self._stopper = self._stopper, None
+            self.scanned = scanned
+        if stopper is not None:
+            stopper.drain()
+
+
 @dataclass
 class _Launch:
     """One in-flight device launch and the per-job state it was packed with."""
@@ -217,6 +256,9 @@ class _Launch:
     # Set when the watchdog ejects the launch (a suspect device pins it):
     # its results are discarded and its control rows kill-fenced.
     abandoned: bool = False
+    # Plain chunked launches on the card: the channel that stops its rows
+    # mid-launch (_stop_rows). None elsewhere.
+    stops: "Optional[_RowStops]" = None
 
 
 class TorchWorkBackend(WorkBackend):
@@ -370,6 +412,14 @@ class TorchWorkBackend(WorkBackend):
         if launch_timeout is None:
             launch_timeout = _LAUNCH_TIMEOUT[dev.type]
         self.launch_timeout = launch_timeout
+        # A plain chunked launch on the card can have rows stopped while it
+        # runs: the search kernel re-reads each row's out word every
+        # stride. Persistent launches have the control channel instead; the
+        # fan and the mesh have neither.
+        self._row_stops = (
+            run_mode == "chunked" and self.fan is None and self.mesh is None
+            and dev.type == "cuda"
+        )
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._tls = threading.local()  # per launch thread: its CUDA streams
         # Persistent launches share ONE stream PER DEVICE: each is a
@@ -406,8 +456,13 @@ class TorchWorkBackend(WorkBackend):
             "dpow_engine_wasted_hashes_total",
             "Nonces scanned for jobs already answered when the launch was "
             "applied, by cause", ("engine", "cause"))
+        self._m_rows_stopped = reg.counter(
+            "dpow_engine_rows_stopped_total",
+            "Rows of in-flight chunked launches stopped mid-launch because "
+            "their job was answered, by cause", ("engine", "cause"))
         for cause in ("solved", "cancelled"):
             self._m_wasted.inc(0, "torch", cause)
+            self._m_rows_stopped.inc(0, "torch", cause)
         self._m_batch_rows = reg.histogram(
             "dpow_engine_batch_occupancy",
             "Live jobs packed per device launch (padding excluded)",
@@ -657,12 +712,31 @@ class TorchWorkBackend(WorkBackend):
                     out.append((rec, i))
         return out
 
-    def _control_cancel_job(self, job: _Job) -> None:
+    def _control_cancel_job(self, job: _Job, cause: str = "cancelled") -> None:
         """Free the job's device rows: deliver CANCEL to every in-flight
         persistent launch still scanning it (no epoch check: stopping a row
-        is valid whatever it was aimed at)."""
+        is valid whatever it was aimed at), and stop its rows in running
+        chunked launches (``cause``: why the job needs no more nonces)."""
         for rec, row in self._live_controls(job):
             rec.control.cancel(row)
+        self._stop_rows(job, cause)
+
+    def _stop_rows(self, job: _Job, cause: str) -> None:
+        """Stop the job's rows in every in-flight launch that can stop
+        them (``_Launch.stops``, open while its thread holds the launch).
+        A job is answered while the launch that solved it is applied, after
+        it left the FIFO, so every launch stopped here is a later one: the
+        answer stays the FIFO-first hit. The job's future is done by the
+        time these launches are applied, so their rows were waste anyway."""
+        stopped = 0
+        for rec in self._inflight:
+            if rec.stops is None:
+                continue
+            for i, j in enumerate(rec.jobs):
+                if j is job and rec.stops.stop(i):
+                    stopped += 1
+        if stopped:
+            self._m_rows_stopped.inc(stopped, "torch", cause)
 
     def _control_raise_job(self, job: _Job, difficulty: int) -> tuple:
         """Deliver a raised target to running launches; (covered, span)
@@ -1207,7 +1281,7 @@ class TorchWorkBackend(WorkBackend):
 
     def _launch(
         self, params_batch: np.ndarray, steps: int, slot: int = 0,
-        devices: Optional[tuple] = None,
+        devices: Optional[tuple] = None, stops: Optional[_RowStops] = None,
     ) -> tuple:
         """One blocking batched launch (called on a worker thread).
 
@@ -1218,7 +1292,9 @@ class TorchWorkBackend(WorkBackend):
         mode the span runs as one steerable launch polling control slot
         ``slot`` (0: no control block, the polls read dead zeros).
         ``devices`` pins a fan launch to those PHYSICAL member indices
-        (degraded width after quarantine, single-device probes).
+        (degraded width after quarantine, single-device probes). ``stops``
+        (a plain chunked launch on the card) is open while the kernel runs
+        and closed with its rows' scanned counts.
         """
         ctl.launch_hook(self._launch_hook_indices(devices))
         if self.run_mode == "persistent":
@@ -1253,16 +1329,39 @@ class TorchWorkBackend(WorkBackend):
             )
             return self._offsets_to_nonces(params_batch, offs)
         if self.device.type == "cuda":
-            with torch.cuda.stream(self._stream(self.device)):
-                params = search.params_from_numpy(params_batch, self.device)
-                out = cuda_kernel.cuda_search_chunk_batch(params, **kwargs)
-                offs = search.offsets_to_numpy(out)
+            # The self-test and probes come without a channel: nothing stops them.
+            offs = self._launch_stoppable(params_batch, stops or _RowStops(), kwargs)
         else:
             params = search.params_from_numpy(params_batch, self.device)
             offs = search.offsets_to_numpy(
                 cuda_kernel.cuda_search_chunk_batch(params, **kwargs)
             )
         return self._offsets_to_nonces(params_batch, offs)
+
+    def _launch_stoppable(self, params_batch: np.ndarray, stops: _RowStops,
+                          kwargs: dict) -> np.ndarray:
+        """The plain chunked launch on the card with its rows stoppable
+        while it runs: ``out`` and ``scanned`` share one buffer, so one
+        stream-ordered copy reads both back (without a blocking wait, which
+        would hold up the event loop's stops); ``stops`` is open from the
+        fill until after that copy. Returns the offsets."""
+        rows = params_batch.shape[0]
+        scanned = None
+        with torch.cuda.stream(self._stream(self.device)):
+            params = search.params_from_numpy(params_batch, self.device)
+            words = torch.empty(2 * rows, dtype=torch.int32, device=self.device)
+            words[:rows].fill_(-1)  # SENTINEL
+            words[rows:].zero_()
+            stops.open(cuda_kernel.RowStopper(words[:rows]))
+            try:
+                cuda_kernel.cuda_search_chunk_batch(
+                    params, out=words[:rows], scanned=words[rows:], **kwargs
+                )
+                host = cuda_kernel.read_back(words)
+                scanned = host[rows:]
+            finally:
+                stops.close(scanned)
+        return host[:rows]
 
     def _launch_hook_indices(self, devices: Optional[tuple]) -> tuple:
         """PHYSICAL fan indices this launch touches — the chaos seam's
@@ -1312,13 +1411,13 @@ class TorchWorkBackend(WorkBackend):
     def _submit_launch(
         self, params_batch: np.ndarray, steps: int, slot: int = 0,
         devices: Optional[tuple] = None, timing: Optional[dict] = None,
-        thread_done: Optional[threading.Event] = None,
+        thread_done: Optional[threading.Event] = None, stops: Optional[_RowStops] = None,
     ) -> asyncio.Future:
         """Hand a launch to the executor; device work starts immediately.
         ``slot`` routes a persistent launch's control polls (0: none);
         ``devices`` pins a fan launch to a subset; ``timing`` receives the
         thread's stage stamps; ``thread_done`` is set when the thread
-        returns."""
+        returns; ``stops`` is the launch's stop channel."""
         if self._executor is None:
             # pipeline launch threads + one for a re-admission probe.
             self._executor = concurrent.futures.ThreadPoolExecutor(
@@ -1331,7 +1430,8 @@ class TorchWorkBackend(WorkBackend):
                     timing["t_thread"] = time.perf_counter()
                     timing["t_thread_clock"] = self._clock.time()
                     timing["thread"] = threading.current_thread().name
-                out = self._launch(params_batch, steps, slot, devices)
+                kw = {} if stops is None else {"stops": stops}
+                out = self._launch(params_batch, steps, slot, devices, **kw)
                 if timing is not None:
                     timing["t_done"] = time.perf_counter()
                     timing["t_done_clock"] = self._clock.time()
@@ -1603,10 +1703,11 @@ class TorchWorkBackend(WorkBackend):
             )
             slot = ctl.register(launch_control)
         thread_done = threading.Event()
+        stops = _RowStops() if self._row_stops else None
         rec = _Launch(
             fut=self._submit_launch(
                 params, steps, slot, devices=launch_devs, timing=timing,
-                thread_done=thread_done,
+                thread_done=thread_done, stops=stops,
             ),
             jobs=active,
             # Snapshot targets and bases at launch: a concurrent dedup may
@@ -1626,6 +1727,7 @@ class TorchWorkBackend(WorkBackend):
             timing=timing,
             t_clock=self._clock.time(),
             thread_done=thread_done,
+            stops=stops,
         )
         span_dev = self.chunk_per_shard * steps
         for job, f in zip(active, factors):
@@ -1643,6 +1745,7 @@ class TorchWorkBackend(WorkBackend):
         timing = rec.timing
         timing["t_apply"] = time.perf_counter()
         timing["batch"], timing["steps"] = rec.batch, rec.steps
+        timing["stopped"] = len(rec.stops.rows) if rec.stops is not None else 0
         if "t_thread" in timing and "t_done" in timing:
             self._m_exec_queue.observe(
                 max(0.0, timing["t_thread"] - timing["t_dispatch"]), "torch"
@@ -1710,9 +1813,9 @@ class TorchWorkBackend(WorkBackend):
             self._m_queue_wait.observe(
                 max(0.0, job.t_first_dispatch - job.t_submit), "torch"
             )
-        # Persistent successors still scanning the solved job exit within
-        # one poll interval instead of grinding on.
-        self._control_cancel_job(job)
+        # Successors still scanning the solved job stop: persistent ones
+        # within one poll interval, chunked ones on the card within a stride.
+        self._control_cancel_job(job, "solved")
         job.future.set_result(work)
 
     @staticmethod
@@ -1744,6 +1847,7 @@ class TorchWorkBackend(WorkBackend):
         applied_hashes = 0
         wasted = {"solved": 0, "cancelled": 0}
         c = rec.control
+        stopped = rec.stops.rows if rec.stops is not None else ()
         for i, (job, launched, base, epoch, lo, hi) in enumerate(zip(
             rec.jobs, rec.launched_difficulty, rec.bases, rec.epochs,
             lo_arr[: len(rec.jobs)], hi_arr[: len(rec.jobs)],
@@ -1757,6 +1861,14 @@ class TorchWorkBackend(WorkBackend):
                 launched = launched if ed is None else ed
                 epoch = c.effective_epoch(i, epoch)
             answered = self._answered(job)
+            if i in stopped:
+                # Stopped mid-launch: its out word was lowered to stop it,
+                # so only the kernel's count says what the row ran.
+                scanned = min(int(rec.stops.scanned[i]), rec.span)
+                applied_hashes += scanned
+                if answered is not None:
+                    wasted[answered] += scanned
+                continue
             nonce = (int(hi) << 32) | int(lo)
             if nonce == _MASK64:  # span dry: base already advanced at dispatch
                 span_i = rec.span

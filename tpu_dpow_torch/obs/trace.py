@@ -233,8 +233,8 @@ class Tracer:
     def launch(self, timing: dict, trace_ids: list) -> None:
         """One applied engine launch: the span its thread ran, [t_thread,
         t_done], with the dispatch and apply stamps around it, its shape,
-        and the trace ids of the jobs it carried (the requests that caused
-        it)."""
+        the rows stopped in it mid-launch, and the trace ids of the jobs it
+        carried (the requests that caused it)."""
         t0 = timing.get("t_thread", timing["t_dispatch"])
         t1 = timing.get("t_done", t0)
         self.record(
@@ -242,7 +242,7 @@ class Tracer:
             stamps={k: timing[k] for k in ("t_dispatch", "t_thread", "t_done", "t_apply")
                     if k in timing},
             args={"batch": timing.get("batch"), "steps": timing.get("steps"),
-                  "trace_ids": trace_ids},
+                  "stopped": timing.get("stopped", 0), "trace_ids": trace_ids},
         )
 
     def ring(self) -> List[tuple]:

@@ -10,7 +10,9 @@ Counterpart of ``tpu_dpow/ops/pallas_kernel.py`` and of the device loop of
     here (``csrc/blake2b_search.cu``); ``sublanes``, ``iters`` and
     ``nblocks`` only define the span one launch scans per row, and
     ``group`` (the TPU's early-exit cadence) is checked and otherwise
-    unused: the kernel exits early per warp.
+    unused: the kernel exits early per warp. A ``RowStopper`` stops a
+    running row from another thread, and ``scanned`` counts the nonces
+    each row really tested.
   * ``cuda_search_run_batch`` and ``cuda_search_run_batch_controlled`` run
     ``run_loop_core``'s multi-window loop as one persistent cooperative
     launch (``csrc/blake2b_run.cu``), with windows of ``window`` nonces
@@ -67,8 +69,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Interface version of each library (``b2_abi_version``): the run kernel's
-# launch took a stride in version 3.
-_ABI_VERSIONS = {"search": 2, "run": 3}
+# launch took a stride in version 3, the search kernel's a ``scanned`` array.
+_ABI_VERSIONS = {"search": 3, "run": 3}
 
 # Kernel launches made through the wrappers below (the only place they move):
 # ``launches`` for the search kernel, ``run_launches`` for the persistent one,
@@ -160,7 +162,7 @@ def _bind_search(lib: ctypes.CDLL) -> None:
     lib.b2_blocks_per_row.argtypes = [ctypes.c_int, ctypes.c_uint]
     lib.b2_blocks_per_row.restype = ctypes.c_int
     lib.b2_search_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
         ctypes.c_void_p,
     ]
     lib.b2_search_launch.restype = ctypes.c_int
@@ -277,16 +279,26 @@ def cuda_search_chunk_batch(
     iters: int = DEFAULT_ITERS,
     nblocks: int = 1,
     group: int = 1,
+    out: Optional[torch.Tensor] = None,
+    scanned: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Batched launch: int32[B, 12] bit view of the uint32 rows → int32[B]
     bit view of the lowest valid offset per row, or SENTINEL.
 
     The span per row is ``nblocks * sublanes * 128 * iters`` nonces, as in
     ``pallas_search_chunk_batch``. On a CPU tensor this is the plain version.
+
+    On the card only: ``out`` (int32[B] on the params' card, filled with
+    SENTINEL by the caller) takes the offsets in place of a new tensor, so
+    that a :class:`RowStopper` can lower a row's word while the kernel runs;
+    ``scanned`` (int32[B] there, zeroed by the caller) gets the nonces each
+    row really tested added to it.
     """
     global launches
     span = window(sublanes, iters, nblocks, group)
     if params_batch.device.type == "cpu":
+        if out is not None or scanned is not None:
+            raise ValueError("out and scanned are the card's: the plain version takes neither")
         return search.search_chunk_batch(params_batch, chunk_size=span)
     if params_batch.device.type != "cuda":
         raise ValueError(f"params must be on cuda or cpu, not {params_batch.device}")
@@ -299,14 +311,20 @@ def cuda_search_chunk_batch(
     if not params_batch.is_contiguous():
         raise ValueError("params must be contiguous")
     rows = params_batch.shape[0]
-    out = torch.full((rows,), -1, dtype=torch.int32, device=params_batch.device)
+    for name, t in (("out", out), ("scanned", scanned)):
+        if t is not None and (t.device != params_batch.device or t.dtype != torch.int32
+                              or t.shape != (rows,) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32[{rows}] on {params_batch.device}")
+    if out is None:
+        out = torch.full((rows,), -1, dtype=torch.int32, device=params_batch.device)
     if rows == 0:
         return out
     lib = load_library()
     with torch.cuda.device(params_batch.device):
         stream = torch.cuda.current_stream(params_batch.device).cuda_stream
         err = lib.b2_search_launch(
-            params_batch.data_ptr(), out.data_ptr(), rows, span, stream
+            params_batch.data_ptr(), out.data_ptr(),
+            None if scanned is None else scanned.data_ptr(), rows, span, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -329,6 +347,81 @@ def cuda_search_chunk(
         params.reshape(1, search.PARAMS_LEN).contiguous(),
         sublanes=sublanes, iters=iters, group=group,
     )[0]
+
+
+# Per card: the stream row stops are written on, and the pinned zero they
+# copy from. Allocating pinned memory keeps the card from running work
+# issued before it beside work issued after it, so the first RowStopper
+# makes them before its own launch (an engine's self-test), not at a stop.
+_stop_streams: Dict[int, tuple] = {}
+# Longest nap between looks while a thread waits for a readback or for its
+# stops to land: a readback's result waits at most this long past its copy.
+READBACK_NAP_MAX_S = 2e-4
+# Per thread: pinned words a readback lands in (grown on demand).
+_tls = threading.local()
+
+
+def _stop_stream(device: torch.device) -> tuple:
+    with _lock:
+        got = _stop_streams.get(device.index)
+        if got is None:
+            got = _stop_streams[device.index] = (
+                torch.cuda.Stream(device=device),
+                torch.zeros(1, dtype=torch.int32).pin_memory(),
+            )
+        return got
+
+
+def read_back(words: torch.Tensor) -> np.ndarray:
+    """int32 ``words`` on the card → their uint32 values on the host, once
+    the work queued before them on the current stream is done. The copy
+    lands in pinned memory and this thread sleeps on an event: a blocking
+    copy would wait inside the driver, where another thread's CUDA calls
+    (a RowStopper's stop) queue behind it until the kernel ends."""
+    n = words.numel()
+    pinned = getattr(_tls, "pinned", None)
+    if pinned is None or pinned.numel() < n:
+        pinned = _tls.pinned = torch.empty(max(n, 64), dtype=torch.int32, pin_memory=True)
+    host = pinned[:n]
+    host.copy_(words, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(words.device))
+    _sleep_until(done, READBACK_NAP_MAX_S)
+    return host.numpy().view(np.uint32).copy()
+
+
+class RowStopper:
+    """Stops rows of one running search launch from another thread:
+    :meth:`stop` writes 0 into the row's word of ``out`` (the launch's
+    ``out`` tensor, made in the current stream and filled with SENTINEL
+    there), and each warp of the row exits at its next stride.
+
+    The write is a 4-byte copy from pinned memory on the card's own stop
+    stream, which needs no SM while the card is full, ordered after the
+    fill (an event recorded at construction, on the current stream). The
+    launch's owner must call :meth:`drain` before it lets ``out`` go: a
+    write landing in reused memory would plant a hit at offset 0 in some
+    other row."""
+
+    def __init__(self, out: torch.Tensor):
+        self.out = out
+        self.stream, self.zero = _stop_stream(out.device)
+        self.filled = torch.cuda.Event()
+        self.filled.record(torch.cuda.current_stream(out.device))
+        self.written: Optional[torch.cuda.Event] = None
+
+    def stop(self, row: int) -> None:
+        with torch.cuda.device(self.out.device), torch.cuda.stream(self.stream):
+            if self.written is None:
+                self.stream.wait_event(self.filled)
+                self.written = torch.cuda.Event()
+            self.out[row:row + 1].copy_(self.zero, non_blocking=True)
+            self.written.record(self.stream)
+
+    def drain(self) -> None:
+        """Wait until every stop written so far has landed."""
+        if self.written is not None:
+            _sleep_until(self.written, READBACK_NAP_MAX_S)
 
 
 
@@ -565,17 +658,17 @@ class _PollServer:
                 return failure
 
 
-def _sleep_until(event) -> int:
-    """Sleep, doubling the nap up to QUEUED_SLEEP_MAX_S, until ``event``
-    has completed: until the work queued ahead of a launch is done and its
-    first poll is about to come. Polling the event (not blocking in the
-    driver) keeps this thread from waiting on anything but its own stream's
-    progress. Returns the nanoseconds waited."""
+def _sleep_until(event, max_nap: float = QUEUED_SLEEP_MAX_S) -> int:
+    """Sleep, doubling the nap up to ``max_nap``, until ``event`` has
+    completed: until the work queued ahead of a launch is done and its
+    first poll is about to come, or a readback has landed. Polling the event
+    (not blocking in the driver) keeps this thread from waiting on anything
+    but its own stream's progress. Returns the nanoseconds waited."""
     t0, nap = time.perf_counter_ns(), 20e-6
     while not event.query():
         # dpowlint: disable=DPOW101 — a launch thread's nap while the card drains the work queued ahead of its kernel: progress is the CUDA event's, not a timer's, so no Clock can stand in for it
         time.sleep(nap)
-        nap = min(2 * nap, QUEUED_SLEEP_MAX_S)
+        nap = min(2 * nap, max_nap)
     return time.perf_counter_ns() - t0
 
 
