@@ -121,6 +121,10 @@ _RUN_STEPS = {"cuda": 16, "cpu": 1}
 # 1-2 % while a cancel lands within ~7 ms. The CPU polls every window, as the JAX
 # engine's CPU default does (test windows are tiny, local polls cheap).
 _POLL_STEPS = {"cuda": 2, "cpu": 1}
+# Why a persistent launch returned: a job row still live at its span's end,
+# the host's cancel or kill stopping its last live rows at a poll, or its last
+# rows' hits.
+PERSISTENT_RETURNS = ("all_done", "span_end", "killed")
 # Automatic launch_timeout: a launch on the card that has not returned in
 # this many seconds fails the engine with a WorkError instead of hanging it
 # (the JAX engine's TPU rule); none on the CPU.
@@ -504,6 +508,21 @@ class TorchWorkBackend(WorkBackend):
             "dpow_backend_persistent_effect_seconds",
             "Control command issue -> device delivery latency on the "
             "engine's injectable clock")
+        # Where a persistent launch's time goes: its rows share the grid
+        # evenly, so a row the device has seen done idles until the launch
+        # returns with its slowest row.
+        self._m_p_row_windows = reg.counter(
+            "dpow_backend_persistent_row_windows_total",
+            "Windows of persistent launches' job rows: live until the poll "
+            "that saw the row done, done from then until the launch returned",
+            ("state",))
+        self._m_p_returns = reg.counter(
+            "dpow_backend_persistent_returns_total",
+            "Persistent launches applied, by why they returned", ("cause",))
+        for state in ("live", "done"):
+            self._m_p_row_windows.inc(0, state)
+        for cause in PERSISTENT_RETURNS:
+            self._m_p_returns.inc(0, cause)
         # Per-device families (fan mode), named as the JAX engine's. Label
         # cardinality is the fan width.
         self._m_dev_rate = reg.gauge(
@@ -1753,7 +1772,6 @@ class TorchWorkBackend(WorkBackend):
             self._m_device_seconds.observe(
                 max(0.0, timing["t_done"] - timing["t_thread"]), "torch"
             )
-        self._tracer.launch(timing, [j.trace_id for j in rec.jobs if j.trace_id])
         c = rec.control
         windows_ran = rec.steps
         if c is not None:
@@ -1769,6 +1787,8 @@ class TorchWorkBackend(WorkBackend):
             for _row, action, latency, _token in c.delivered:
                 self._m_p_control.inc(1, action)
                 self._m_p_effect.observe(latency)
+            self._count_persistent_rows(rec, windows_ran, lo_arr, hi_arr)
+        self._tracer.launch(timing, [j.trace_id for j in rec.jobs if j.trace_id])
         if "t_done" in timing and "t_thread" in timing:
             # Wall seconds per launch window (EMA): the poll-cadence →
             # seconds conversion behind the watchdog's progress deadlines.
@@ -1803,6 +1823,35 @@ class TorchWorkBackend(WorkBackend):
             self._m_hash_rate.set(
                 applied_hashes / (timing["t_done"] - timing["t_thread"]), "torch"
             )
+
+    def _count_persistent_rows(self, rec: _Launch, windows_ran: int, lo_arr, hi_arr) -> None:
+        """Count a persistent launch's job rows (pad rows excluded) on every
+        device it ran on: a row is live from the launch's first window until
+        the poll that saw it done (``done_at_k``), and done from then until
+        the launch returned. The launch returned at its span's end when a
+        job row was still live there without a hit (``span_end``), at a poll
+        when every row had been seen done there, the last ones stopped by
+        the host's cancel or kill (``killed``: the loop ends at that poll,
+        not one block later), else when its last rows hit (``all_done``).
+        The launch span carries the windows, live row-windows and cause."""
+        c = rec.control
+        ones = np.uint32(0xFFFFFFFF)
+        unsolved = ((np.asarray(lo_arr) == ones) & (np.asarray(hi_arr) == ones)).reshape(
+            c.n_dev, -1)
+        seen = c.done_at_k
+        rows = range(len(rec.jobs))
+        if any(unsolved[d, i] and (i, d) not in seen
+               for d in range(c.n_dev) for i in rows):
+            cause = "span_end"
+        elif all((i, d) in seen for d in range(c.n_dev) for i in range(rec.batch)):
+            cause, windows_ran = "killed", c.last_k
+        else:
+            cause = "all_done"
+        live = sum(c.windows_run(i, windows_ran, d) for d in range(c.n_dev) for i in rows)
+        self._m_p_row_windows.inc(live, "live")
+        self._m_p_row_windows.inc(windows_ran * len(rec.jobs) * c.n_dev - live, "done")
+        self._m_p_returns.inc(1, cause)
+        rec.timing.update(windows_ran=windows_ran, live_row_windows=live, cause=cause)
 
     def _record_solve(self, job: _Job, work: str) -> None:
         """Shared per-solve bookkeeping (plain and fan apply paths)."""

@@ -56,6 +56,9 @@ MAX_TRACES = 2048
 # Host spans the ring keeps (launches, start-up phases, collections): at a
 # few hundred launches a second, the last several seconds of a busy worker.
 MAX_SPANS = 8192
+# What a persistent launch's span adds: windows it ran, its job rows' live
+# row-windows, and why it returned.
+PERSISTENT_ARGS = ("windows_ran", "live_row_windows", "cause")
 
 STARTUP_GAUGE = "dpow_client_startup_seconds"
 # A worker's set-up, in the order it runs (client/app.py DpowClient.setup,
@@ -233,16 +236,20 @@ class Tracer:
     def launch(self, timing: dict, trace_ids: list) -> None:
         """One applied engine launch: the span its thread ran, [t_thread,
         t_done], with the dispatch and apply stamps around it, its shape,
-        the rows stopped in it mid-launch, and the trace ids of the jobs it
-        carried (the requests that caused it)."""
+        the rows stopped in it mid-launch, a persistent launch's windows,
+        live row-windows and why it returned, and the trace ids of the jobs
+        it carried (the requests that caused it)."""
         t0 = timing.get("t_thread", timing["t_dispatch"])
         t1 = timing.get("t_done", t0)
+        args = {"batch": timing.get("batch"), "steps": timing.get("steps"),
+                "stopped": timing.get("stopped", 0)}
+        args.update((k, timing[k]) for k in PERSISTENT_ARGS if k in timing)
+        args["trace_ids"] = trace_ids
         self.record(
             "launch", t0, t1, cat="engine", thread=timing.get("thread", ""),
             stamps={k: timing[k] for k in ("t_dispatch", "t_thread", "t_done", "t_apply")
                     if k in timing},
-            args={"batch": timing.get("batch"), "steps": timing.get("steps"),
-                  "stopped": timing.get("stopped", 0), "trace_ids": trace_ids},
+            args=args,
         )
 
     def ring(self) -> List[tuple]:
