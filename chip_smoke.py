@@ -25,7 +25,11 @@ result lines.
                    a rebase at k = 1 and a killed row, each at poll steps 1
                    and 4, plus the uncontrolled launch with and without an
                    active mask, and one row at the engine's 2^25 window with
-                   its first hit past window 2. Bit-equal (lo, hi) and
+                   its first hit past window 2; then launches whose rows
+                   finish spans apart (15 rows done in the first span and
+                   one late, one job padded to 2, 4 and 8 rows, a launch
+                   that ends at its span's end), whose windows the kernel
+                   must count as re-granted. Bit-equal (lo, hi) and
                    identical LaunchControl bookkeeping, or fail.
   fan_vs_plain     the four fan functions over every visible card against
                    their plain versions (2^22-nonce member windows, hits
@@ -33,9 +37,11 @@ result lines.
                    and _run_controlled under both engine policies with a
                    raise, a per-member rebase and a cancel, its members
                    polling in lockstep; then the run kernel's strided windows
-                   (stride 4 windows) with and without control and one
-                   stride == window case. Bit-equal nonces and identical
-                   LaunchControl fields per (row, member), or fail.
+                   (stride 4 windows) with and without control, one
+                   stride == window case, and a strided controlled fan launch
+                   whose rows finish far apart on member 0. Bit-equal nonces
+                   and identical LaunchControl fields per (row, member), or
+                   fail.
   engine           TorchWorkBackend at mainnet difficulty: 8 single requests,
                    a 16+16 concurrent burst at two difficulties, a cancel and
                    a raise_difficulty; then the work server (HTTP on
@@ -233,8 +239,10 @@ result lines.
   kernel_time      each kernel alone and its plain version: the search kernel
                    at one engine launch shape (max_batch rows, one window),
                    the run kernel at max_batch rows x 2 windows without
-                   control, contiguous and strided (4 windows apart), and one
-                   fanned launch over every card; unreachable difficulty so
+                   control, contiguous and strided (4 windows apart), the
+                   same nonces as one live row of max_batch (the others
+                   inactive: the re-granted grid), and one fanned launch
+                   over every card; unreachable difficulty so
                    every row scans it all; CUDA events (host clock for the
                    fan, whose results come back to the host), beside the
                    integer-issue bound, and one ganged launch
@@ -679,7 +687,8 @@ def _run_pair(params, *, window: int, geo: dict, max_steps: int, poll_steps=None
             if slot is not None:
                 control.release(slot)
         out[side] = {"nonces": got, "seconds": seconds,
-                     "control": None if c is None else control_bookkeeping(c)}
+                     "control": None if c is None else control_bookkeeping(c),
+                     "grid": None if c is None else dict(c.grid_windows)}
     return out
 
 
@@ -790,6 +799,7 @@ def phase_run_vs_plain(state: dict) -> None:
         poll_steps=eng.control_poll_steps), row[None],
         extra={"hit_window": off // eng.chunk, "attempts": attempt + 1})
     _engine_launch_cases(eng, geo, rng, check)
+    _regrant_cases(rng, check, small, eng.control_poll_steps)
     state["run_max_abs_err"] = max_err
     emit({"phase": "run_vs_plain", "ok": True, "max_abs_err": max_err,
           "tolerance": "bit-exact (nonces) and identical LaunchControl bookkeeping",
@@ -883,6 +893,86 @@ def _engine_launch_cases(eng, geo: dict, rng, check, cut: int = 1 << 30) -> None
     _expect_planted("rows1/split_span", pair, row, {0: at})
     check("rows1/split_span", pair, row,
           extra={"hit_window": at // window, "poll_steps": split_poll, "attempts": attempt + 1})
+
+
+def _first_hits(rows, geo: dict, windows: int) -> list:
+    """Each uint32[12] row's first hit offset in ``windows`` windows of
+    ``geo`` from its base, by the search kernel (held against its plain
+    version in kernel_vs_plain), or None."""
+    from tpu_dpow_torch.ops import cuda_kernel, search
+
+    offs = search.offsets_to_numpy(cuda_kernel.cuda_search_chunk_batch(
+        search.params_from_numpy(rows, "cuda"), **{**geo, "nblocks": geo["nblocks"] * windows}))
+    return [None if o == search.SENTINEL else int(o) for o in offs]
+
+
+def _draw_hits(rng, geo: dict, target: int, count: int, lo: int, hi: int) -> list:
+    """``count`` random (row, first hit offset) at ``target`` whose first
+    hit lies in windows [lo, hi) of ``geo``."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import cuda_kernel, search
+
+    window, got = cuda_kernel.window(**geo), []
+    for _ in range(16):
+        rows = np.stack([search.pack_params(rng.bytes(32), target, int(rng.integers(0, 1 << 63)))
+                         for _ in range(2 * count)])
+        got += [(r, o) for r, o in zip(rows, _first_hits(rows, geo, hi))
+                if o is not None and lo * window <= o]
+        if len(got) >= count:
+            return got[:count]
+    raise AssertionError(f"no seed gave {count} first hits in windows [{lo}, {hi})")
+
+
+def _regrant_cases(rng, check, geo: dict, poll_steps: int) -> None:
+    """Launches whose rows finish spans apart, at the engine's poll cadence
+    over ``geo``'s (small) windows, so the plain loop stays short: 15 rows
+    pinned to hit in the first span and one 8-15 windows in; one such late
+    job padded to 2, 4 and 8 rows as the engine pads; and a launch that ends
+    at its span's end, its dry row live to the last window. Every row but
+    the late ones is done after the first span, so the kernel must count
+    that span's windows even and every later one re-granted."""
+    import numpy as np
+
+    from tpu_dpow_torch.ops import cuda_kernel, search
+
+    window = cuda_kernel.window(**geo)
+    first_span = poll_steps * window
+    easy = (1 << 64) - (1 << 64) // first_span  # first hit ~1 span in
+    late_target = (1 << 64) - (1 << 64) // (8 * window)  # ~8 windows in
+    pad = search.pack_params(bytes(32), 0, 0)
+
+    def pinned(hits):  # (row, off) -> (row whose first hit is off % first_span, that offset)
+        return [(_with(r, base=(_row_base(r) + o - o % first_span) & MAX_U64), o % first_span)
+                for r, o in hits]
+
+    def run(label, rows, want, max_steps, grid):
+        host = np.stack(rows)
+        pair = _run_pair(search.params_from_numpy(host, "cuda"), window=window, geo=geo,
+                         max_steps=max_steps, poll_steps=poll_steps)
+        _expect_planted(label, pair, host, want)
+        got = pair["kernel"]["grid"].get(0)
+        if got != grid:
+            raise AssertionError(f"{label}: kernel counted (even, regranted) {got}, not {grid}")
+        check(label, pair, host, extra={"hit_windows": sorted(o // window for o in want.values()),
+                                        "grid": got})
+
+    def spans(off):  # windows the launch runs to the end of the span holding off
+        return (off // first_span + 1) * poll_steps
+
+    early = pinned(_draw_hits(rng, geo, easy, 17, 0, 4))
+    late, late_off = _draw_hits(rng, geo, late_target, 1, 8, 16)[0]
+    rows = [r for r, _ in early[:15]] + [late]
+    want = {**{i: o for i, (_, o) in enumerate(early[:15])}, 15: late_off}
+    run("rows16/regrant_late", rows, want, 32, (poll_steps, spans(late_off) - poll_steps))
+    for b in (2, 4, 8):
+        run(f"rows{b}/one_job_padded", [late] + [pad] * (b - 1), {0: late_off}, 32,
+            (poll_steps, spans(late_off) - poll_steps))
+    dry = search.pack_params(rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 63)))
+    mid, mid_off = _draw_hits(rng, geo, late_target, 1, 2, 6)[0]
+    rows = [early[15][0], early[16][0], mid, dry, pad]
+    want = {0: early[15][1], 1: early[16][1], 2: mid_off}
+    run("rows5/span_end", rows, want, 8, (poll_steps, 8 - poll_steps))
 
 
 def _expect_planted(label: str, pair: dict, rows, want: dict) -> None:
@@ -999,6 +1089,8 @@ def _controlled_fan_pair(stk, devs, *, window: int, stride: int, max_steps: int,
         finally:
             control.release(slot)
         books[side] = member_bookkeeping(c, n)
+        if side == "kernel":
+            sides["grid"] = dict(c.grid_windows)
     if books["kernel"] != books["plain"]:
         raise AssertionError(f"controlled fan bookkeeping: {books['kernel']} vs {books['plain']}")
     sides["polls"] = books["kernel"]["polls"]
@@ -1155,6 +1247,43 @@ def phase_fan_vs_plain(state: dict) -> None:
               {"hits": sum(x != MAX_U64 for x in k["nonces"]), "stride": stride,
                "polls": None if k["control"] is None else k["control"]["polls"]},
               (k["seconds"], p["seconds"]))
+
+    # A strided controlled fan launch whose rows finish far apart on member
+    # 0: three rows hit in its strided window 0, one 6-11 windows later, and
+    # a dry row keeps every member polling to max_steps.
+    stride, steps = STRIDE_WINDOWS * n * window, 12
+    easy, late_target = (1 << 64) - (1 << 64) // (window // 2), (1 << 64) - (1 << 64) // (8 * window)
+    picked = {"early": [], "late": []}
+    for attempt in range(16):
+        cands = np.stack([search.pack_params(rng.bytes(32), easy if i < 8 else late_target,
+                                             int(rng.integers(0, 1 << 63))) for i in range(16)])
+        for row, nonce in zip(cands, _strided_first_hits(cands, geo, stride, steps, devs[0])):
+            if nonce == MAX_U64:
+                continue
+            hit_w = ((nonce - _row_base(row)) & MAX_U64) // stride
+            if hit_w == 0:
+                picked["early"].append((row, nonce))
+            elif 6 <= hit_w < steps:
+                picked["late"].append((row, nonce))
+        if len(picked["early"]) >= 3 and picked["late"]:
+            break
+    else:
+        raise AssertionError("no seed put three first hits in strided window 0 and one in 6-11")
+    far = picked["early"][:3] + picked["late"][:1]
+    host_far = np.stack([r for r, _ in far]
+                        + [search.pack_params(rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 63)))])
+    pair = _controlled_fan_pair(fan_search.stagger(host_far, n, window), devs, window=window,
+                                stride=stride, max_steps=steps, poll_steps=1, geo=geo, events=[])
+    (k_out, k_s), (p_out, p_s) = pair["kernel"], pair["plain"]
+    member0 = [(int(h) << 32) | int(x) for x, h in zip(k_out[0][0], k_out[1][0])]
+    if member0 != [nonce for _, nonce in far] + [MAX_U64]:
+        raise AssertionError(f"strided fan, rows far apart: member 0 gave {member0}")
+    if pair["grid"].get(0) != (1, steps - 1):
+        raise AssertionError(f"strided fan, rows far apart: member 0 counted {pair['grid']}")
+    agree("run_controlled/strided_far_apart", np.stack(k_out), np.stack(p_out),
+          {"polls": pair["polls"], "stride": stride, "grid": pair["grid"],
+           "hit_windows": _hit_windows(host_far, member0, stride), "attempts": attempt + 1},
+          (k_s, p_s))
     state["fan_max_abs_err"] = state["strided_max_abs_err"] = max_err
     emit({"phase": "fan_vs_plain", "ok": True, "members": n, "window": window,
           "max_abs_err": max_err,
@@ -4577,8 +4706,13 @@ def _time_run_kernel(state: dict, eng, params, timed) -> dict:
     scanned), its plain version once on the same rows (their results
     bit-equal), and one row over 16 windows with and without a control
     channel at the engine's poll cadence (a dead slot: every poll answers
-    zeros), which prices the polls. Then the strided launch's shape with
-    first hits in strided windows 0 and 1 (_strided_with_hits)."""
+    zeros), which prices the polls. Then the same nonces as ONE live row of
+    max_batch, the others inactive (done from the start): the kernel deals
+    the whole grid to that row, so it should scan at the all-live rate. Then
+    the strided launch's shape with first hits in strided windows 0 and 1
+    (_strided_with_hits)."""
+    import torch
+
     from tpu_dpow_torch.ops import cuda_kernel, runloop
 
     window = eng.chunk
@@ -4592,6 +4726,11 @@ def _time_run_kernel(state: dict, eng, params, timed) -> dict:
     one_free = lambda: cuda_kernel.cuda_search_run_batch(one, None, window=window, max_steps=16)
     one_polled = lambda: cuda_kernel.cuda_search_run_batch_controlled(
         one, None, 0, window=window, max_steps=16, poll_steps=eng.control_poll_steps)
+    rows = params.shape[0]
+    first_only = torch.zeros(rows, dtype=torch.uint8, device=params.device)
+    first_only[0] = 1
+    one_live = lambda: cuda_kernel.cuda_search_run_batch(
+        params, first_only, window=window, max_steps=rows * RUN_TIME_STEPS)
     # The same rows and windows, each window's base STRIDE_WINDOWS windows
     # past the last: the strided mode a fan member runs.
     stride = STRIDE_WINDOWS * window
@@ -4616,6 +4755,10 @@ def _time_run_kernel(state: dict, eng, params, timed) -> dict:
     with_hits = _strided_with_hits(eng, stride)
     state["strided_max_abs_err"] = max(state.get("strided_max_abs_err", 0),
                                        with_hits["max_abs_err"])
+    one_live()  # warm-up
+    one_live_ms = timed(one_live, 5)
+    if set(_nonces(*one_live())) != {MAX_U64}:
+        raise AssertionError("a dry row, alone live of its launch, returned a nonce")
     polls_before = cuda_kernel.run_poll_stats["polls"]
     one_free_ms, one_polled_ms = timed(one_free, 3), timed(one_polled, 3)
     polls = (cuda_kernel.run_poll_stats["polls"] - polls_before) // 3
@@ -4635,6 +4778,9 @@ def _time_run_kernel(state: dict, eng, params, timed) -> dict:
         "hashes_per_second": nonces / (ms / 1e3), "op_bound_ms": op_bound_ms,
         "byte_bound_ms": byte_bound_ms, "bound_share": op_bound_ms / ms,
         "int_instr_per_nonce": sum(state["sass_run"].values()),
+        "one_live_of_rows": {"windows": rows * RUN_TIME_STEPS, "nonces": nonces, "ms": one_live_ms,
+                             "bound_share": op_bound_ms / one_live_ms,
+                             "over_all_live": one_live_ms / ms},
         "one_row_16_windows_ms": one_free_ms,
         "one_row_16_windows_polled_ms": one_polled_ms,
         "polls_per_polled_launch": polls,

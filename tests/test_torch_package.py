@@ -297,12 +297,19 @@ class _FakeFn:
         return self.ret
 
 
+class _OutWords(_FakeFn):
+    """``b2_run_out_words``: a launch's lo and hi words, then its statistics."""
+
+    def __call__(self, rows):
+        return 2 * rows + cuda_kernel._OUT_STATS
+
+
 class _FakeLib:
     """Stands in for a kernel library loaded from ``path`` (its name)."""
 
     def __init__(self, path):
         self.b2_abi_version = _FakeFn(cuda_kernel._ABI_VERSIONS[path])
-        self.b2_run_out_words = _FakeFn(2 + cuda_kernel._OUT_STATS)
+        self.b2_run_out_words = _OutWords()
 
     def __getattr__(self, attr):
         fn = _FakeFn()

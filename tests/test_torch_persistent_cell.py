@@ -4,14 +4,21 @@
   requests exactly the lowest nonce from the start that hashlib finds
   (``dpowbench/reference.py``), and ``dpow_engine_hashes_total`` counts the
   nonces the rows ran up to their hits. On a card (marker ``cuda``) the
-  same with 16 rows at a lowered threshold.
+  same with 16 rows at a lowered threshold, and with rows whose first hits
+  lie spans apart, which the run kernel scans with the finished rows'
+  blocks re-granted to the late ones.
 * A scripted persistent launch whose rows the device reports done at known
   polls counts the expected live and done row-windows
   (``dpow_backend_persistent_row_windows_total``), returns for the expected
   cause (``dpow_backend_persistent_returns_total``), and its launch span
   carries both.
-* The cell's two readers, ``persistent_live_rows_pct`` and
-  ``run_kernel_roofline_pct``, on canned pages and traces.
+* A launch's out words, laid out as the run library's ``b2_run_out_words``
+  gives them, count its windows dealt evenly and re-granted
+  (``dpow_backend_persistent_grid_windows_total``); chunked launches count
+  none.
+* The cell's readers, ``persistent_live_rows_pct``,
+  ``run_kernel_roofline_pct`` and ``persistent_regrant_pct``, on canned
+  pages and traces.
 * A whole CPU run of ``send_v2_persistent.closed32`` at a tiny threshold
   comes out correct, and its control run does not.
 """
@@ -33,7 +40,7 @@ from tpu_dpow_torch import obs
 from tpu_dpow_torch.backend.torch_backend import PERSISTENT_RETURNS, TorchWorkBackend, _Job
 from tpu_dpow_torch.models import WorkRequest
 from tpu_dpow_torch.obs import LEDGER
-from tpu_dpow_torch.ops import search
+from tpu_dpow_torch.ops import control, cuda_kernel, search
 
 torch.set_num_threads(1)
 
@@ -41,6 +48,7 @@ CELL = "send_v2_persistent.closed32"
 TINY = 0xFFF0000000000000  # 2^12 expected hashes: a CPU window or two
 ROW_WINDOWS = "dpow_backend_persistent_row_windows_total"
 RETURNS = "dpow_backend_persistent_returns_total"
+GRID_WINDOWS = "dpow_backend_persistent_grid_windows_total"
 H100 = "NVIDIA H100 80GB HBM3"
 
 
@@ -102,6 +110,67 @@ def test_persistent_engine_returns_the_references_lowest_nonce_on_the_card():
     solve_pinned("cuda", 16, 0xFFFFF00000000000, seed=1818)
 
 
+@pytest.mark.cuda
+def test_rows_that_finish_spans_apart_on_the_card():
+    """At the cell's geometry, 15 rows pinned to hit in the launch's first
+    span and one pinned to hit at least four spans (2^28 nonces) later: the
+    engine returns each row's first hit, found beforehand by the search
+    kernel, the hashes counted are the nonces up to the hits, and the run
+    kernel ran the late row's spans with the grid re-granted to it."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    threshold = 0xFFFFFFF000000000  # 2^28 expected hashes
+    b = cell_engine("cuda")
+    geo = dict(sublanes=b.sublanes, iters=b.iters, nblocks=b.nblocks, group=b.group)
+    span = b.chunk * b.control_poll_steps  # a live row's nonces between polls
+    rng = np.random.default_rng(1819)
+    for _attempt in range(4):
+        cands = [(rng.bytes(32), int(rng.integers(0, 1 << 62))) for _ in range(24)]
+        params = np.stack([search.pack_params(h, threshold, start) for h, start in cands])
+        # each row's first hit in 32 windows (2^30 nonces) from its start
+        offs = search.offsets_to_numpy(cuda_kernel.cuda_search_chunk_batch(
+            search.params_from_numpy(params, "cuda"), **{**geo, "nblocks": b.nblocks * 32}))
+        hit = sorted(((int(o), h, start) for (h, start), o in zip(cands, offs)
+                      if o != search.SENTINEL), reverse=True)
+        if len(hit) >= 16 and hit[0][0] >= 4 * span:
+            break
+    else:
+        pytest.fail("no seed gave 16 rows with a first hit and one 4 spans in")
+    # No hit lies in [start, start + off): from start + off - t the first hit
+    # is at offset t, for any t <= off.
+    # The late row last: a launch dispatched with the first job alone has
+    # one row and never re-grants.
+    late = hit[0]
+    early = [(off % span, h, start + off - off % span) for off, h, start in hit[1:16]]
+    rows = [(h.hex().upper(), start, t) for t, h, start in early + [late]]
+
+    def series(name):
+        return dict(obs.snapshot()[name]["series"])
+
+    async def go():
+        await b.setup()
+        before = (series("dpow_engine_hashes_total").get("torch", 0), series(GRID_WINDOWS))
+        try:
+            works = await asyncio.gather(*(
+                b.generate(WorkRequest(h, threshold, nonce_range=(start, 0)))
+                for h, start, _t in rows))
+            while b._inflight:
+                await asyncio.sleep(0.01)
+            grid = series(GRID_WINDOWS)
+            return (works, series("dpow_engine_hashes_total").get("torch", 0) - before[0],
+                    {k: grid[k] - before[1][k] for k in grid})
+        finally:
+            await b.close()
+
+    works, scanned, grid = run(go(), timeout=600)
+    want = [f"{start + t:016x}" for _h, start, t in rows]
+    assert works == want
+    for (h, _start, _t), w in zip(rows, works):
+        assert reference.work_value(h, w) >= threshold
+    assert scanned == sum(t + 1 for _h, _start, t in rows)
+    assert grid["regranted"] >= late[0] // b.chunk - 2 * b.control_poll_steps
+
+
 # -- a scripted persistent launch ------------------------------------------
 
 EASY = 0xFF00000000000000
@@ -137,6 +206,57 @@ SCRIPTS = {
     "killed": (3, 4, {0: (), 2: (3,), 4: (0,), 6: ()}, (), (1, 2), 4 + 6 + 6, 2 + 0 + 0, 6,
                "killed"),
 }
+
+
+# (batch, windows the kernel ran, of those re-granted): a full launch whose
+# first row is done after its first span, a padded one that re-grants from
+# its second span, and a 1-row launch, which never re-grants.
+GRID_CASES = {"full": (4, 10, 8), "padded": (4, 6, 4), "one_row": (1, 6, 0)}
+
+
+@pytest.mark.parametrize("name", list(GRID_CASES))
+def test_launch_out_words_count_grid_windows(monkeypatch, name):
+    """The run library's out words for a launch (their length from the
+    faked library's ``b2_run_out_words``, its ABI the wrapper's) reach the
+    launch's control slot through ``take_out_stats``, and the engine counts
+    them at apply as ``even`` and ``regranted`` windows; a released slot
+    drops them."""
+    from test_torch_package import _FakeLib
+
+    batch, windows, regranted = GRID_CASES[name]
+    monkeypatch.setattr(cuda_kernel, "build_libraries", lambda names: {n: n for n in names})
+    monkeypatch.setattr(cuda_kernel.ctypes, "CDLL", _FakeLib)
+    monkeypatch.setattr(cuda_kernel, "_libs", {})
+    monkeypatch.setattr(cuda_kernel, "_lib_paths", {})
+    lib = cuda_kernel.load_run_library()
+    obs.reset()
+    LEDGER.reset()
+    b = TorchWorkBackend(device="cpu", run_mode="persistent", max_batch=batch, run_steps=4,
+                         control_poll_steps=2)
+    rng = np.random.default_rng(19)
+
+    async def go():
+        loop = asyncio.get_running_loop()
+        b._submit_launch = lambda params, steps, slot=0, **kw: loop.create_future()
+        for h in [rng.bytes(32).hex().upper() for _ in range(min(batch, 3))]:
+            b._jobs[h] = _Job(h, EASY, search.pack_params(bytes.fromhex(h), EASY, 0),
+                              loop.create_future(), 0)
+        rec = b._dispatch_next()
+        _polls(rec.control, {k: () for k in range(0, windows, 2)}, rec.batch)
+        words = np.zeros(lib.b2_run_out_words(rec.batch), dtype=np.uint32)
+        for i, job in enumerate(rec.jobs):
+            nonce = int(reference.solve(job.block_hash, EASY, rec.bases[i]), 16)
+            words[i], words[rec.batch + i] = nonce & 0xFFFFFFFF, nonce >> 32
+        stats = words[2 * rec.batch:]
+        stats[0], stats[5], stats[6] = rec.control.polls, windows, regranted
+        cuda_kernel.take_out_stats(stats, rec.slot, 0, 0)
+        control.release(rec.slot)
+        cuda_kernel.take_out_stats(stats, rec.slot, 0, 0)  # released: dropped
+        b._apply_results(rec, words[:rec.batch], words[rec.batch:2 * rec.batch])
+
+    run(go())
+    assert obs.snapshot()[GRID_WINDOWS]["series"] == {"even": windows - regranted,
+                                                      "regranted": regranted}
 
 
 @pytest.mark.parametrize("name", list(SCRIPTS))
@@ -206,6 +326,7 @@ def test_chunked_launches_count_no_row_windows():
     run(go())
     snap = obs.snapshot()
     assert snap[ROW_WINDOWS]["series"] == {"live": 0, "done": 0}
+    assert snap[GRID_WINDOWS]["series"] == {"even": 0, "regranted": 0}
     assert set(snap[RETURNS]["series"].values()) == {0}
     spans = [r[6] for r in tracer.ring() if r[0] == "launch"]
     assert spans and not any("cause" in a or "windows_ran" in a for a in spans)
@@ -213,11 +334,13 @@ def test_chunked_launches_count_no_row_windows():
 
 # -- the cell's readers -----------------------------------------------------
 
-def page(live=0.0, done=0.0, hashes=0.0, counts=True) -> prom.Page:
+def page(live=0.0, done=0.0, hashes=0.0, counts=True, even=0.0, regranted=0.0) -> prom.Page:
     text = f'dpow_engine_hashes_total{{engine="torch"}} {hashes}\n'
     if counts:
         text += (f'{ROW_WINDOWS}{{state="live"}} {live}\n'
-                 f'{ROW_WINDOWS}{{state="done"}} {done}\n')
+                 f'{ROW_WINDOWS}{{state="done"}} {done}\n'
+                 f'{GRID_WINDOWS}{{grid="even"}} {even}\n'
+                 f'{GRID_WINDOWS}{{grid="regranted"}} {regranted}\n')
     return prom.parse_text(text)
 
 
@@ -231,6 +354,15 @@ def test_live_rows_reader():
     # the parent's worker counts no row-windows; a chunked cell applies none
     assert read(src(page(counts=False), page(counts=False))) is None
     assert read(src(page(10, 5), page(10, 5))) is None
+
+
+def test_regrant_reader():
+    read = load_reader("persistent_regrant_pct")
+    assert read(src(page(even=4, regranted=6), page(even=10, regranted=60))) == pytest.approx(
+        100.0 * 54 / 60)
+    # the parent's worker counts no grid windows; a chunked cell applies none
+    assert read(src(page(counts=False), page(counts=False))) is None
+    assert read(src(page(even=4, regranted=6), page(even=4, regranted=6))) is None
 
 
 def test_run_kernel_roofline_reader():
@@ -257,7 +389,7 @@ def test_the_cell_reads_its_metrics():
     assert {m["name"] for m in for_cell(bench["end_to_end"], CELL)} == {"served_per_s",
                                                                          "setup_s"}
     assert {m["name"] for m in for_cell(bench["per_layer"], CELL)} == {
-        "persistent_live_rows_pct", "run_kernel_roofline_pct"}
+        "persistent_live_rows_pct", "run_kernel_roofline_pct", "persistent_regrant_pct"}
 
 
 # -- a whole CPU run of the cell -------------------------------------------

@@ -508,9 +508,9 @@ class TorchWorkBackend(WorkBackend):
             "dpow_backend_persistent_effect_seconds",
             "Control command issue -> device delivery latency on the "
             "engine's injectable clock")
-        # Where a persistent launch's time goes: its rows share the grid
-        # evenly, so a row the device has seen done idles until the launch
-        # returns with its slowest row.
+        # Where a persistent launch's time goes: a row the device has seen
+        # done waits for the launch to return with its slowest row, while
+        # the run kernel deals its grid over the rows still live.
         self._m_p_row_windows = reg.counter(
             "dpow_backend_persistent_row_windows_total",
             "Windows of persistent launches' job rows: live until the poll "
@@ -519,8 +519,15 @@ class TorchWorkBackend(WorkBackend):
         self._m_p_returns = reg.counter(
             "dpow_backend_persistent_returns_total",
             "Persistent launches applied, by why they returned", ("cause",))
+        self._m_p_grid_windows = reg.counter(
+            "dpow_backend_persistent_grid_windows_total",
+            "Windows persistent launches' run kernels ran with their grid dealt "
+            "over every row (even) or over fewer, done rows' blocks re-granted "
+            "to the live ones (regranted)", ("grid",))
         for state in ("live", "done"):
             self._m_p_row_windows.inc(0, state)
+        for grid in ("even", "regranted"):
+            self._m_p_grid_windows.inc(0, grid)
         for cause in PERSISTENT_RETURNS:
             self._m_p_returns.inc(0, cause)
         # Per-device families (fan mode), named as the JAX engine's. Label
@@ -1833,8 +1840,13 @@ class TorchWorkBackend(WorkBackend):
         when every row had been seen done there, the last ones stopped by
         the host's cancel or kill (``killed``: the loop ends at that poll,
         not one block later), else when its last rows hit (``all_done``).
-        The launch span carries the windows, live row-windows and cause."""
+        The launch span carries the windows, live row-windows and cause.
+        The windows each device's run kernel reported, dealt over every row
+        or re-granted to fewer (``c.grid_windows``), count as they are."""
         c = rec.control
+        grid = list(c.grid_windows.values())
+        self._m_p_grid_windows.inc(sum(even for even, _ in grid), "even")
+        self._m_p_grid_windows.inc(sum(regranted for _, regranted in grid), "regranted")
         ones = np.uint32(0xFFFFFFFF)
         unsolved = ((np.asarray(lo_arr) == ones) & (np.asarray(hi_arr) == ones)).reshape(
             c.n_dev, -1)

@@ -170,6 +170,12 @@ class LaunchControl:
         #: (row, dev) -> window index at which that device reported the
         #: row done (or will deterministically stop it: delivered cancel)
         self.done_at_k: Dict[tuple, int] = {}
+        #: dev -> (even, regranted): windows that device's run kernel ran
+        #: with its grid dealt over every row of the launch, and over fewer
+        #: (the done rows' blocks re-granted to the live ones), as its out
+        #: words report them (:func:`record_grid`; the plain loop reports
+        #: none)
+        self.grid_windows: Dict[int, tuple] = {}
 
     # -- host writers ----------------------------------------------------
 
@@ -401,6 +407,10 @@ class LaunchControl:
         for row in range(self.rows):
             self.kill(row)
 
+    def record_grid(self, dev: int, even: int, regranted: int) -> None:
+        with self._lock:
+            self.grid_windows[int(dev)] = (int(even), int(regranted))
+
     def windows_run(self, row: int, max_steps: int, dev: int = 0) -> int:
         """Upper bound on windows device ``dev`` actually scanned for the
         row — its ``done_at_k`` when it reported the row done mid-launch
@@ -432,6 +442,15 @@ def release(slot: int) -> None:
         dropped = _slots.pop(slot, None) is not None
     if dropped:
         LEDGER.discharge("slot", slot)
+
+
+def record_grid(slot, dev, even, regranted) -> None:
+    """Hand a finished kernel's grid windows to its slot's control block
+    (a released slot drops them, as it answers polls with zeros)."""
+    with _slots_lock:
+        ctrl = _slots.get(int(slot))
+    if ctrl is not None:
+        ctrl.record_grid(dev, even, regranted)
 
 
 def poll_slot(slot, dev, k, done) -> np.ndarray:

@@ -11,16 +11,17 @@
 // launch; per-row state (difficulty, base, done, seq, winning nonce and the
 // poll block's best offset) lives in device memory. Each outer iteration:
 //
-//   1. The leader (block (0, 0), thread 0) polls the host when a mailbox is
+//   1. The leader (block 0, thread 0) polls the host when a mailbox is
 //      attached: it writes k and done[] into mapped pinned memory, fences,
 //      bumps req_seq and spins on resp_seq; then it applies the host's
 //      control words to the live rows as run_loop_core does (cancel: done,
 //      difficulty 0; raise and rebase only on a fresh seq, never on a row
-//      cancelled in the same poll).
+//      cancelled in the same poll). It then lists the rows still live, in
+//      row order, and their count n_live (see "Blocks and rows" below).
 //   2. Grid barrier.
-//   3. Every block scans its row's next windows, up to the next poll
+//   3. Every block scans its live row's next windows, up to the next poll
 //      (k + poll_steps) or max_steps, as ONE contiguous span from the row's
-//      base; done rows are skipped. A run of windows at one target has the
+//      base; done rows get no block. A run of windows at one target has the
 //      same first hit as the window-by-window loop, so results are
 //      bit-equal to it. A span is cut at 2^30 offsets (several windows, or
 //      one window when a window is larger), and the rest of the poll block
@@ -60,11 +61,22 @@
 // such a copy would queue on the launches' one stream behind a successor
 // kernel that needs another thread to serve its polls.
 //
+// Blocks and rows: the grid is one dimension of G blocks, the card's
+// co-resident count (cooperative launch), dealt anew at every span over the
+// n_live rows the leader listed at step 1: block g scans row live[g % n_live]
+// as block g / n_live of that row's ceil((G - g % n_live) / n_live) blocks.
+// With every row live this is the even split blake2b_search.cu makes; once a
+// row is done (hit, cancelled, or a pad row that started done), its share of
+// the grid goes to the rows still live from the next span on, so a launch
+// scans at the whole card's rate until its slowest row hits. The first hit
+// of a span is its lowest hitting offset whatever number of blocks scans it,
+// so the nonces and every poll are those of the even split. The kernel
+// counts the windows it ran, and of those the windows whose span was dealt
+// over fewer rows than the launch holds (re-granted), in its out statistics.
+//
 // What bounds it: the same 64-bit integer ALU work as blake2b_search.cu
 // (the Blake2b body is the shared header), so the integer issue rate of the
 // scan loop's SASS; polls and barriers add a host round trip per poll block.
-// The grid is the card's co-resident block count (cooperative launch),
-// shared over the rows as blake2b_search.cu shares it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -98,8 +110,8 @@ constexpr int kSpinCheck = 4096;  // host spins between clock reads
 // ctrl[rows, 6], then the launch's `out` (see b2_run_launch).
 constexpr int kMbReq = 0, kMbResp = 1, kMbK = 2, kMbDone = 4;
 // Words of `out` after the lo and hi words: polls, poll_ns (lo, hi),
-// poll_ns_max (lo, hi), a spare word.
-constexpr int kOutStats = 6;
+// poll_ns_max (lo, hi), windows run, and of those the re-granted ones.
+constexpr int kOutStats = 7;
 
 // Per-row state, device memory (six 64-bit words).
 struct RowState {
@@ -113,7 +125,8 @@ struct RowState {
   unsigned long long pad2;
 };
 
-// Launch-wide state, device memory (eight 64-bit words), before the rows.
+// Launch-wide state, device memory (ten 64-bit words), before the rows; the
+// live list (uint32 [rows]) follows the rows.
 struct RunShared {
   unsigned long long span;          // offsets each live row scans next (< 2^31)
   unsigned long long poll_ns;       // summed device-side poll round trip
@@ -124,10 +137,14 @@ struct RunShared {
   unsigned long long next_poll_k;   // k of the next poll
   unsigned long long span_steps;    // windows per span (kMaxSpan / window, >= 1)
   unsigned long long advance;       // base advance of a live row after the span
+  unsigned int n_live;              // rows listed live for the current span
+  unsigned int windows;             // windows run so far
+  unsigned int regranted;           // of those, windows dealt over fewer rows than nrows
+  unsigned int pad;
 };
 
 static_assert(sizeof(RowState) == 48, "RowState is six words");
-static_assert(sizeof(RunShared) == 64, "RunShared is eight words");
+static_assert(sizeof(RunShared) == 80, "RunShared is ten words");
 
 __device__ __forceinline__ uint64_t u64(uint32_t lo, uint32_t hi) {
   return lo | (static_cast<uint64_t>(hi) << 32);
@@ -180,15 +197,16 @@ __device__ void poll_host(volatile uint32_t* mb, volatile RowState* rows, int nr
   }
 }
 
-// One block's share of its row's span (step 3 above): blake2b_search.cu's loop.
+// Block `part` of the `parts` blocks that scan a row's span (step 3 above):
+// blake2b_search.cu's loop.
 __device__ __forceinline__ void scan_span(uint32_t span, uint64_t base, uint64_t diff,
                                           uint64_t m1, uint64_t m2, uint64_t m3, uint64_t m4,
-                                          unsigned int* best_p) {
+                                          unsigned int* best_p, uint32_t part, uint32_t parts) {
   const uint32_t lane = threadIdx.x & 31u;
   const uint32_t warp_first = threadIdx.x & ~31u;
   // span < 2^31 and stride < 2^31, so `start + stride` never wraps.
-  const uint32_t stride = gridDim.x * kThreads;
-  for (uint32_t start = blockIdx.x * kThreads; start < span; start += stride) {
+  const uint32_t stride = parts * kThreads;
+  for (uint32_t start = part * kThreads; start < span; start += stride) {
     uint32_t best = 0;
     if (lane == 0) best = *reinterpret_cast<volatile unsigned int*>(best_p);
     best = __shfl_sync(0xFFFFFFFFu, best, 0);
@@ -205,27 +223,23 @@ __device__ __forceinline__ void scan_span(uint32_t span, uint64_t base, uint64_t
 
 __global__ void __launch_bounds__(kThreads)
     b2_run_kernel(const uint32_t* __restrict__ params, const uint8_t* __restrict__ active,
-                  RunShared* shared, RowState* rows, uint32_t* out, int nrows, uint32_t window,
-                  uint32_t stride, int max_steps, int poll_steps, uint32_t* mbox) {
-  const int row = blockIdx.y;
-  const bool row_leader = blockIdx.x == 0 && threadIdx.x == 0;
-  const bool leader = row_leader && row == 0;
+                  RunShared* shared, RowState* rows, unsigned int* live, uint32_t* out,
+                  int nrows, uint32_t window, uint32_t stride, int max_steps, int poll_steps,
+                  uint32_t* mbox) {
+  const bool leader = blockIdx.x == 0 && threadIdx.x == 0;
   volatile RowState* vrows = rows;
   volatile RunShared* sh = shared;
-  const uint32_t* p = params + static_cast<size_t>(row) * kParamsLen;
-  const uint64_t m1 = u64(p[0], p[1]);
-  const uint64_t m2 = u64(p[2], p[3]);
-  const uint64_t m3 = u64(p[4], p[5]);
-  const uint64_t m4 = u64(p[6], p[7]);
-  if (row_leader) {
+  volatile unsigned int* vlive = live;
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < nrows; r += gridDim.x * kThreads) {
     // Inactive (padding) rows start done at difficulty 0 (runloop.py:106-119).
-    const bool live = active == nullptr || active[row] != 0;
-    vrows[row].best = kSentinel;
-    vrows[row].diff = live ? u64(p[8], p[9]) : 0;
-    vrows[row].base = u64(p[10], p[11]);
-    vrows[row].nonce = kNone;
-    vrows[row].done = live ? 0 : 1;
-    vrows[row].seq = 0;
+    const uint32_t* p = params + static_cast<size_t>(r) * kParamsLen;
+    const bool on = active == nullptr || active[r] != 0;
+    vrows[r].best = kSentinel;
+    vrows[r].diff = on ? u64(p[8], p[9]) : 0;
+    vrows[r].base = u64(p[10], p[11]);
+    vrows[r].nonce = kNone;
+    vrows[r].done = on ? 0 : 1;
+    vrows[r].seq = 0;
   }
   if (leader) {
     sh->poll_ns = 0;
@@ -233,6 +247,8 @@ __global__ void __launch_bounds__(kThreads)
     sh->polls = 0;
     sh->k = 0;
     sh->next_poll_k = 0;
+    sh->windows = 0;
+    sh->regranted = 0;
     // Strided windows are one span each; contiguous ones are cut at kMaxSpan.
     sh->span_steps = stride != window || window >= kMaxSpan ? 1 : kMaxSpan / window;
   }
@@ -252,6 +268,18 @@ __global__ void __launch_bounds__(kThreads)
       uint64_t end = static_cast<uint64_t>(max_steps);
       if (mbox != nullptr && sh->next_poll_k < end) end = sh->next_poll_k;
       const uint64_t steps = end - k < sh->span_steps ? end - k : sh->span_steps;
+      // The rows the span deals the grid over: at least one unless exit.
+      unsigned int n_live = 0;
+      for (int r = 0; r < nrows; ++r) {
+        if (!vrows[r].done) vlive[n_live++] = r;
+      }
+      if (!exit) {
+        sh->windows = sh->windows + static_cast<unsigned int>(steps);
+        if (n_live < static_cast<unsigned int>(nrows)) {
+          sh->regranted = sh->regranted + static_cast<unsigned int>(steps);
+        }
+      }
+      sh->n_live = n_live;
       sh->span = steps * window;
       sh->advance = steps * stride;  // == span when stride == window
       sh->exit = exit ? 1u : 0u;
@@ -259,9 +287,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     cg::this_grid().sync();
     if (sh->exit) break;
-    if (!vrows[row].done) {
-      scan_span(static_cast<uint32_t>(sh->span), vrows[row].base, vrows[row].diff, m1, m2, m3,
-                m4, &rows[row].best);
+    {
+      const uint32_t n_live = sh->n_live;
+      const uint32_t slot = blockIdx.x % n_live;
+      const unsigned int row = vlive[slot];
+      // The row's message words, loaded per span: a block's row changes as
+      // rows finish.
+      const uint32_t* p = params + static_cast<size_t>(row) * kParamsLen;
+      scan_span(static_cast<uint32_t>(sh->span), vrows[row].base, vrows[row].diff,
+                u64(p[0], p[1]), u64(p[2], p[3]), u64(p[4], p[5]), u64(p[6], p[7]),
+                &rows[row].best, blockIdx.x / n_live, (gridDim.x - slot + n_live - 1) / n_live);
     }
     cg::this_grid().sync();
     if (leader) {
@@ -292,7 +327,8 @@ __global__ void __launch_bounds__(kThreads)
     stats[2] = static_cast<uint32_t>(sh->poll_ns >> 32);
     stats[3] = static_cast<uint32_t>(sh->poll_ns_max);
     stats[4] = static_cast<uint32_t>(sh->poll_ns_max >> 32);
-    stats[5] = 0;
+    stats[5] = sh->windows;
+    stats[6] = sh->regranted;
     __threadfence_system();
   }
 }
@@ -325,20 +361,21 @@ cudaError_t resident_blocks(int* total) {
 
 extern "C" {
 
-int b2_abi_version() { return 3; }
+int b2_abi_version() { return 4; }
 
 const char* b2_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// 64-bit words of the state buffer a launch of `rows` rows needs.
+// 64-bit words of the state buffer a launch of `rows` rows needs: the
+// launch-wide state, the rows, and the live list (uint32 [rows], rounded up).
 int b2_run_state_words(int rows) {
-  return static_cast<int>((sizeof(RunShared) + rows * sizeof(RowState)) / 8);
+  return static_cast<int>((sizeof(RunShared) + rows * sizeof(RowState) + 4 * rows + 7) / 8);
 }
 
 // uint32 words of a launch's `out`.
 int b2_run_out_words(int rows) { return 2 * rows + kOutStats; }
 
-// Blocks each row gets: the co-resident count shared over the rows, rounded
-// down so that the whole grid is resident (0 on error or too many rows).
+// Blocks each row gets at least while every row is live: the co-resident
+// count shared over the rows, rounded down (0 on error or too many rows).
 int b2_run_blocks_per_row(int rows) {
   int total = 0;
   if (rows <= 0 || resident_blocks(&total) != cudaSuccess) return 0;
@@ -348,7 +385,7 @@ int b2_run_blocks_per_row(int rows) {
 // params: uint32 [rows, 12]; active: uint8 [rows] or null (every row live);
 // state: b2_run_state_words(rows) 64-bit words of device scratch; out:
 // b2_run_out_words(rows) uint32 words, device memory or the mailbox's mapped
-// tail (lo words, hi words, then the poll statistics); window: nonces each
+// tail (lo words, hi words, then the statistics); window: nonces each
 // row scans per step; stride: the base advance per step (window <= stride <
 // 2^31; stride == window is the contiguous scan); mbox: the mailbox's
 // device pointer, or null for a launch without control. Returns the
@@ -368,11 +405,12 @@ int b2_run_launch(const void* params, const void* active, void* state, void* out
   const uint8_t* a = static_cast<const uint8_t*>(active);
   RunShared* shared = static_cast<RunShared*>(state);
   RowState* row_state = reinterpret_cast<RowState*>(shared + 1);
+  unsigned int* live = reinterpret_cast<unsigned int*>(row_state + rows);
   uint32_t* o = static_cast<uint32_t*>(out);
   uint32_t* mb = static_cast<uint32_t*>(mbox);
-  void* args[] = {&p,      &a,         &shared,     &row_state, &o, &rows,
-                  &window, &stride, &max_steps, &poll_steps, &mb};
-  const dim3 grid(total / rows, rows);
+  void* args[] = {&p,    &a,      &shared, &row_state, &live,      &o,
+                  &rows, &window, &stride, &max_steps, &poll_steps, &mb};
+  const dim3 grid(total);
   return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(b2_run_kernel), grid,
                                                       dim3(kThreads), args, 0,
                                                       static_cast<cudaStream_t>(stream)));

@@ -21,7 +21,9 @@ Counterpart of ``tpu_dpow/ops/pallas_kernel.py`` and of the device loop of
     launch polls its control block through a mailbox in mapped pinned host
     memory: the calling thread serves each poll through
     ``control.poll_slot`` (as fan member ``dev``) until the kernel has
-    returned, exactly the polls ``io_callback`` would make.
+    returned, exactly the polls ``io_callback`` would make, and hands the
+    slot the windows the kernel ran with its grid dealt over every row or
+    re-granted to fewer (``take_out_stats``).
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, started
@@ -69,8 +71,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Interface version of each library (``b2_abi_version``): the run kernel's
-# launch took a stride in version 3, the search kernel's a ``scanned`` array.
-_ABI_VERSIONS = {"search": 3, "run": 3}
+# launch took a stride in version 3 and deals its grid over the live rows,
+# counting its windows in its out words, in version 4; the search kernel's
+# took a ``scanned`` array in version 3.
+_ABI_VERSIONS = {"search": 3, "run": 4}
 
 # Kernel launches made through the wrappers below (the only place they move):
 # ``launches`` for the search kernel, ``run_launches`` for the persistent one,
@@ -438,9 +442,10 @@ class RowStopper:
 
 # Mailbox words: req_seq, resp_seq, k, spare, done[rows], ctrl[rows, 6], then
 # the launch's out words: lo[rows], hi[rows], polls, poll_ns (lo, hi),
-# poll_ns_max (lo, hi), spare (csrc/blake2b_run.cu).
+# poll_ns_max (lo, hi), windows run, and of those the windows whose span the
+# kernel dealt over fewer rows than the launch holds (csrc/blake2b_run.cu).
 _MB_HEAD = 4
-_OUT_STATS = 6
+_OUT_STATS = 7
 # Longest the poll-serving loop spins in C (without the GIL) for a request
 # before it looks whether the kernel has returned.
 POLL_SPIN_US = 200
@@ -658,6 +663,25 @@ class _PollServer:
                 return failure
 
 
+def take_out_stats(stats: np.ndarray, slot: int, dev: int, queued_ns: int) -> None:
+    """Take a controlled launch's statistics words (its out words after lo
+    and hi): the polls and their round trips go into ``run_poll_stats``, and
+    the windows the kernel ran, dealt evenly over every row or re-granted
+    over fewer, to control slot ``slot`` as fan member ``dev``
+    (``control.record_grid``)."""
+    polls = int(stats[0])
+    total_ns = int(stats[1]) | int(stats[2]) << 32
+    max_ns = int(stats[3]) | int(stats[4]) << 32
+    windows, regranted = int(stats[5]), int(stats[6])
+    with _lock:
+        run_poll_stats["polls"] += polls
+        run_poll_stats["round_trip_ns"] += total_ns
+        run_poll_stats["round_trip_ns_max"] = max(run_poll_stats["round_trip_ns_max"], max_ns)
+        run_poll_stats["queued_ns"] += queued_ns
+        run_poll_stats["queued_ns_max"] = max(run_poll_stats["queued_ns_max"], queued_ns)
+    control.record_grid(slot, dev, windows - regranted, regranted)
+
+
 def _sleep_until(event, max_nap: float = QUEUED_SLEEP_MAX_S) -> int:
     """Sleep, doubling the nap up to ``max_nap``, until ``event`` has
     completed: until the work queued ahead of a launch is done and its
@@ -728,15 +752,7 @@ def cuda_search_run_batch_controlled(
     failure = server.serve(finished)
     out = box.words[base:base + 2 * rows + _OUT_STATS].copy()
     _give_mailbox(box)  # the kernel has returned: nothing reads it any more
-    polls = int(out[2 * rows])
-    total_ns = int(out[2 * rows + 1]) | int(out[2 * rows + 2]) << 32
-    max_ns = int(out[2 * rows + 3]) | int(out[2 * rows + 4]) << 32
-    with _lock:
-        run_poll_stats["polls"] += polls
-        run_poll_stats["round_trip_ns"] += total_ns
-        run_poll_stats["round_trip_ns_max"] = max(run_poll_stats["round_trip_ns_max"], max_ns)
-        run_poll_stats["queued_ns"] += queued_ns
-        run_poll_stats["queued_ns_max"] = max(run_poll_stats["queued_ns_max"], queued_ns)
+    take_out_stats(out[2 * rows:], int(slot), int(dev), queued_ns)
     if failure is not None:
         raise failure
     bits = torch.from_numpy(out[:2 * rows].view(np.int32).copy())
