@@ -12,8 +12,8 @@
   DPOW1002 and DPOW101 behaviour.
 * dpowsan: the five hub scenarios give the same interleaving trace (and
   LeakLedger trace) in both packages seed for seed; the device-fault
-  scenario is clean on the CPU's plain version, and on the card (marker
-  ``cuda``, skipped here) on the run kernel.
+  scenario is clean on the CPU's plain version (its card run, on the run
+  kernel, is in ``tests/test_torch_card.py``).
 """
 
 import ast
@@ -38,7 +38,6 @@ from tpu_dpow.analysis.core import Project as RefProject
 from tpu_dpow.analysis.core import run_all as ref_run_all
 from tpu_dpow_torch.analysis import CHECKERS, FAMILIES, KNOWN_CODES, clock, sanitizer, tracing
 from tpu_dpow_torch.analysis.core import Baseline, Finding, Project, run_all
-from tpu_dpow_torch.ops import cuda_kernel
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 PORT = "tpu_dpow_torch"
@@ -515,15 +514,3 @@ def test_cli_san_without_a_card_fails_and_names_it():
     assert "FAIL scenario=devfault seed=0" in proc.stderr
     assert "no CUDA device" in proc.stderr
     assert "dpowsan: clean" not in proc.stderr
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", range(2))
-def test_devfault_scenario_on_the_card(seed):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the persistent run kernel has no CPU mode")
-    before = cuda_kernel.run_launches
-    run = sanitizer.run_seed("devfault", seed, "cuda")
-    assert run.ok, run.error
-    assert cuda_kernel.run_launches > before
-    torch.cuda.synchronize()
