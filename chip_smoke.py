@@ -15,7 +15,8 @@ the main path's launches and the times.
                persistent run kernel) from the checkout's sources, one nvcc
                per source started together; prints ptxas' register/spill
                report and each kernel's per-nonce integer-instruction count
-               from its SASS, by pipe.
+               from its SASS, by pipe, with the half-rate IMAD.HI and
+               IMAD.WIDE and the local-memory ops inside the scan loop.
   kernel_time  first the main path: the engine (TorchWorkBackend) chunked,
                persistent, fanned over every card (persistent, interleaved)
                and ganged over every card, each serving a burst of
@@ -70,13 +71,14 @@ STRIDE_WINDOWS = 4
 # Per-thread integer opcodes counted from the SASS, by pipe (uniform-datapath
 # U* ops run once per warp and are not counted): integer add, logic, shift
 # and compare issue on the ALU pipe, integer multiply-add (IMAD, which the
-# compiler also uses for moves and adds) on the FMA pipe.
+# compiler also uses for moves and adds) and the byte dot products (IDP, the
+# rotations of blake2b_search.cuh) on the FMA pipe.
 ALU_OPS = {
     "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "ISETP", "ICMP",
     "SEL", "LEA", "IMNMX", "VIMNMX", "MOV", "IABS", "POPC", "FLO", "BREV", "BMSK",
     "SGXT",
 }
-FMA_OPS = {"IMAD", "IMUL"}
+FMA_OPS = {"IMAD", "IMUL", "IDP"}
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -97,15 +99,18 @@ _SASS_LINE = re.compile(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]
 _SASS_TARGET = re.compile(r"(0x[0-9a-f]+|\.L_x_\d+)")
 
 
+#: FMA-pipe forms the H100 issues at half rate (32 lanes per SM per clock
+#: alone, against 64 for IMAD, IMAD.X, IDP and the ALU pipe's LOP3 and SHF),
+#: and which in the scan loop slow the ALU pipe's work beside them: a rotate
+#: half or an add moved into them costs more than it frees
+#: (blake2b_search.cuh). Counted where the multiplier is a register or a
+#: constant word, not where it is an immediate: an address's stride.
+HALF_RATE_FORMS = ("IMAD.HI", "IMAD.WIDE")
+
+
 def sass_int_instructions(lib_path: str, kernel: str = "b2_search_kernel") -> dict:
-    """Per-nonce integer instructions of ``kernel``, by opcode: the static
-    count inside its scan loop (the smallest loop, from a backward branch's
-    target to that branch, that holds the Blake2b body's 1,000+ integer
-    instructions), so the prologue (row loads, grid setup), the exit and, in
-    the run kernel, the poll and fold around the scan are left out. The
-    body is straight-line (12 unrolled rounds), so each opcode in the loop
-    runs once per nonce. Returns {"loop": counts, "function": counts,
-    "loop_range": [first, last] byte addresses}."""
+    """``count_sass`` of ``kernel`` in the SASS that cuobjdump reads from the
+    library at ``lib_path``."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
         cuobjdump = shutil.which("cuobjdump") or cuobjdump
@@ -113,6 +118,19 @@ def sass_int_instructions(lib_path: str, kernel: str = "b2_search_kernel") -> di
         [cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
         timeout=120,
     ).stdout
+    return count_sass(sass, kernel)
+
+
+def count_sass(sass: str, kernel: str) -> dict:
+    """Per-nonce integer instructions of ``kernel`` in a cuobjdump listing,
+    by opcode: the static count inside its scan loop (the smallest loop,
+    from a backward branch's target to that branch, that holds the Blake2b
+    body's 1,000+ integer instructions), so the prologue (row loads, grid
+    setup), the exit and, in the run kernel, the poll and fold around the
+    scan are left out. The body is straight-line (12 unrolled rounds), so
+    each opcode in the loop runs once per nonce. Returns {"loop": counts,
+    "function": counts, "loop_range": [first, last] byte addresses,
+    "local_memory_ops_in_loop": n, "half_rate_in_loop": n}."""
     instrs, labels, pending, inside = [], {}, [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -152,6 +170,7 @@ def sass_int_instructions(lib_path: str, kernel: str = "b2_search_kernel") -> di
             loop = (target, addr)
     if loop is None:
         raise RuntimeError(f"no scan loop found in the SASS of {kernel}")
+    in_loop = [(op, operands) for addr, op, operands in instrs if loop[0] <= addr <= loop[1]]
 
     result = {
         "loop": count(lambda a: loop[0] <= a <= loop[1]),
@@ -159,8 +178,11 @@ def sass_int_instructions(lib_path: str, kernel: str = "b2_search_kernel") -> di
         "loop_range": [loop[0], loop[1]],
         # Spilled registers are read and written with LDL/STL: any inside
         # the loop would cost memory traffic per nonce.
-        "local_memory_ops_in_loop": sum(
-            1 for addr, op, _ in instrs if op in ("LDL", "STL") and loop[0] <= addr <= loop[1]
+        "local_memory_ops_in_loop": sum(1 for op, _ in in_loop if op in ("LDL", "STL")),
+        "half_rate_in_loop": sum(
+            1 for op, operands in in_loop
+            if any((op + operands).startswith(form) for form in HALF_RATE_FORMS)
+            and not operands.split(",")[2].strip().startswith("0x")
         ),
     }
     if not result["loop"]:
@@ -222,6 +244,7 @@ def _kernel_report(cuda_kernel, name: str, kernel: str) -> dict:
         "sass_loop_bytes": [hex(a) for a in sass["loop_range"]],
         "sass_int_instructions_whole_kernel": sum(sass["function"].values()),
         "sass_local_memory_ops_in_loop": sass["local_memory_ops_in_loop"],
+        "sass_half_rate_in_loop": sass["half_rate_in_loop"],
     }
 
 

@@ -10,8 +10,10 @@
   operator scripts included; ``python -m tpu_dpow_torch.client --help``
   exits 0.
 * The kernel's arithmetic header (``ops/csrc/blake2b_search.cuh``), built for
-  the host with ``g++``, gives hashlib's work values.
-* ``chip_smoke.py`` fails, and prints no result, where no card is visible.
+  the host with ``g++``, gives hashlib's work values, and each of its
+  FMA-pipe forms equals plain integer arithmetic.
+* ``chip_smoke.py`` fails, and prints no result, where no card is visible;
+  its SASS count takes the named kernel's scan loop.
 * On a card (marker ``cuda``, skipped here; run with ``python -m pytest
   --noconftest -m cuda tests/test_torch_package.py``): each kernel equals its
   plain version bit for bit — the search kernel at every launch shape the
@@ -21,7 +23,8 @@
   each launch moves its counter by one, and the fan and mesh functions over
   every visible card equal their plain versions. The search kernel counts
   the nonces each row ran, and a row whose out word is lowered mid-launch
-  from another stream stops short of its span.
+  from another stream stops short of its span. Each kernel's scan loop
+  keeps its pipe budget in the SASS.
 """
 
 import ctypes
@@ -175,6 +178,81 @@ def test_cuh_host_build_matches_hashlib(tmp_path):
             assert lib.pow_value(n, words) == ref_value(n, h), (h.hex(), n)
 
 
+MASK32 = (1 << 32) - 1
+
+
+def _dp4a(a: int, b: int, c: int) -> int:
+    return (c + sum(((a >> i) & 0xFF) * ((b >> i) & 0xFF) for i in (0, 8, 16, 24))) & MASK32
+
+
+def _dp2a_lo(a: int, b: int, c: int) -> int:
+    return (c + (a & 0xFFFF) * (b & 0xFF) + (a >> 16) * ((b >> 8) & 0xFF)) & MASK32
+
+
+# Each FMA-pipe form of the header (the card's PTX instruction's definition,
+# or a rotation built of them at the multipliers the card reads) and the
+# plain arithmetic it must equal.
+FMA_FORMS = {
+    "mad_lo": (3, lambda a, b, c: (a * b + c) & MASK32),
+    "dp4a": (3, _dp4a),
+    "dp2a_lo": (3, _dp2a_lo),
+    "rotr24_fma": (1, lambda x: ((x >> 24) | (x << 40)) & MAX_U64),
+    "rotr16_fma": (1, lambda x: ((x >> 16) | (x << 48)) & MAX_U64),
+}
+
+
+@pytest.fixture(scope="module")
+def cuh_fma_forms(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the header's host build cannot be compiled")
+    tmp = tmp_path_factory.mktemp("cuh_fma")
+    src = tmp / "fma.cc"
+    src.write_text(
+        f'#include "{CUH}"\n'
+        'using namespace b2pow;\n'
+        'extern "C" {\n'
+        "uint32_t t_mad_lo(uint32_t a, uint32_t b, uint32_t c) { return mad_lo(a, b, c); }\n"
+        "uint32_t t_dp4a(uint32_t a, uint32_t b, uint32_t c) { return dp4a(a, b, c); }\n"
+        "uint32_t t_dp2a_lo(uint32_t a, uint32_t b, uint32_t c) { return dp2a_lo(a, b, c); }\n"
+        "uint64_t t_rotr24_fma(uint64_t x) { return rotr24_fma(x, ROT24_UP, ROT24_DOWN); }\n"
+        "uint64_t t_rotr16_fma(uint64_t x) { return rotr16_fma(x, ROT16_UP, ROT16_DOWN); }\n"
+        "}\n"
+    )
+    lib_path = tmp / "libfma.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(lib_path), str(src)],
+        check=True, capture_output=True, timeout=120,
+    )
+    return ctypes.CDLL(str(lib_path))
+
+
+@pytest.mark.parametrize("name", sorted(FMA_FORMS))
+def test_cuh_fma_form_equals_plain_arithmetic(cuh_fma_forms, name):
+    """The header's host build of each FMA-pipe form against plain integer
+    arithmetic, on seeded random words and on the edges: zero, all-ones,
+    a single bit at each half's ends, and sums that wrap 2^32. The card
+    runs the same rotations, so the cuda-marked kernel tests hold the PTX
+    instructions to these definitions."""
+    arity, plain = FMA_FORMS[name]
+    fn = getattr(cuh_fma_forms, "t_" + name)
+    word = ctypes.c_uint32 if arity == 3 else ctypes.c_uint64
+    fn.argtypes, fn.restype = [word] * arity, word
+    rng = np.random.default_rng(21)
+    if arity == 3:
+        edges = [0, 1, 0xFF, 0xFFFF, 1 << 31, 0x01000000, 0x0100, 0xFF00FF00, MASK32]
+        cases = [(a, b, c) for a in edges for b in edges for c in (0, 1, MASK32 - 3, MASK32)]
+        cases += [tuple(int(x) for x in rng.integers(0, 1 << 32, size=3, dtype=np.uint64))
+                  for _ in range(4096)]
+    else:
+        edges = [0, 1, MAX_U64, MAX_U64 - 1, 1 << 63, 1 << 32, (1 << 32) - 1, 0xFF << 24,
+                 0xFFFF << 16, 0x00FF00FF00FF00FF, 0x0123456789ABCDEF]
+        cases = [(x,) for x in edges]
+        cases += [(int(x),) for x in rng.integers(0, 1 << 64, size=4096, dtype=np.uint64)]
+    for args in cases:
+        assert fn(*args) == plain(*args), (name, [hex(a) for a in args])
+
+
 def test_chip_smoke_refuses_without_a_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run(
@@ -183,6 +261,76 @@ def test_chip_smoke_refuses_without_a_card():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _chip_smoke():
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _sass_listing(functions) -> str:
+    """A ``cuobjdump -sass`` listing of ``functions``: (name, body) pairs,
+    each body a list of instructions ("OP operands") and labels (".L_x_N:"),
+    at 16-byte addresses from 0."""
+    lines = []
+    for name, body in functions:
+        lines += [f"\t\tFunction : {name}", '\t.headerflags\t@"EF_CUDA_SM90"']
+        addr = 0
+        for item in body:
+            if item.endswith(":"):
+                lines.append(item)
+                continue
+            lines.append(f"        /*{addr:04x}*/                   {item} ;"
+                         "                                /* 0x0000000000000000 */")
+            lines.append(" " * 89 + "/* 0x000fe20000000000 */")
+            addr += 16
+    return "\n".join(lines) + "\n"
+
+
+def _body(alu: int, fma: int, half_rate: int = 0, spills: int = 0) -> list:
+    return (["LOP3.LUT R2, R3, R4, RZ, 0x3c, !PT"] * (alu // 2)
+            + ["SHF.L.W.U32.HI R5, R6, 0x8, R7"] * (alu - alu // 2)
+            + ["IMAD.X R8, R9, 0x1, R10, P0"] * (fma - half_rate)
+            + ["IMAD.HI.U32 R11, R12, UR4, RZ"] * (half_rate // 2)
+            + ["IMAD.WIDE.U32 R12, R13, UR4, RZ"] * (half_rate - half_rate // 2)
+            + ["STL [R1], R2", "LDL R2, [R1]"][:spills]
+            + ["IMAD.WIDE.U32 R20, R0, 0x4, R20"]  # an address: not half-rate work
+            + ["UIMAD.WIDE.U32 UR6, UR6, UR4, URZ", "REDUX.MIN UR5, R2"])
+
+
+@pytest.mark.parametrize("target", ["address", "label"])
+def test_sass_count_takes_the_scan_loop_of_the_named_kernel(target):
+    """``chip_smoke.count_sass``, which the on-card pipe check reads: the
+    named kernel's innermost loop that holds 1,000+ integer instructions
+    (not the outer loop around it, a short loop after it, or another
+    kernel), split by pipe, with its half-rate IMAD forms and spills."""
+    chip_smoke = _chip_smoke()
+    scan = _body(1200, 300, half_rate=5, spills=2)  # and an address's IMAD.WIDE
+    prologue = ["LDC R1, c[0x0][0x28]", "IADD3 R0, R0, 0x1, RZ", "IMAD.MOV.U32 R3, RZ, RZ, 0x7"]
+    # addresses: 3 prologue, the scan loop from 0x30, its branch, then a
+    # short loop and the outer loop's branch back to the prologue's end
+    start, end = 3 * 16, (3 + len(scan)) * 16
+    back = (f"BRA 0x{start:x}" if target == "address" else "BRA `(.L_x_7)")
+    kernel = (prologue[:1] + ([".L_x_3:"] if target == "label" else []) + prologue[1:]
+              + ([".L_x_7:"] if target == "label" else []) + scan
+              + [f"@!P0 {back}", "LOP3.LUT R2, R2, R3, RZ, 0xfc, !PT",
+                 f"@P1 BRA 0x{end + 16:x}",
+                 "@P2 BRA `(.L_x_3)" if target == "label" else "@P2 BRA 0x10", "EXIT"])
+    decoy = _body(2000, 10, half_rate=10) + ["@P0 BRA 0x0"]
+    listing = _sass_listing([("_Z12check_kernelPKmPyj", decoy),
+                             ("_Z16b2_search_kernelPKjPjS1_j", kernel)])
+    got = chip_smoke.count_sass(listing, "b2_search_kernel")
+    fma = sum(n for op, n in got["loop"].items() if op in chip_smoke.FMA_OPS)
+    assert (sum(got["loop"].values()) - fma, fma) == (1200, 301)
+    assert got["loop_range"] == [start, end]
+    assert got["half_rate_in_loop"] == 5
+    assert got["local_memory_ops_in_loop"] == 2
+    assert sum(got["function"].values()) == 1200 + 301 + 2 + 1  # IADD3, IMAD.MOV, LOP3
+    with pytest.raises(RuntimeError):
+        chip_smoke.count_sass(listing, "b2_run_kernel")
 
 
 def test_queued_launch_sleeps_until_its_start_event():
@@ -606,6 +754,40 @@ def test_kernel_matches_plain_on_the_card(card, nblocks):
         cuda_kernel.cuda_search_chunk_batch(params.to(torch.int64), **geo)
 
 
+#: ALU-pipe instructions per nonce that each kernel's scan loop may issue.
+#: The ALU pipe sets the body's pace: it carries the XORs, rotr 63 and the
+#: adds' low halves, whose carry only IADD3 makes; rotr 24 and 16 go to the
+#: FMA pipe as IDP + IMAD (blake2b_search.cuh). Measured 1,324 (search) and
+#: 1,325 (run) ALU- and 1,028 and 1,031 FMA-pipe instructions, against
+#: 1,687 and 1,683 ALU with the plain rotations (PERF.md, kernel table).
+SCAN_ALU_BUDGET = 1340
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, kernel", [("search", "b2_search_kernel"),
+                                          ("run", "b2_run_kernel")])
+def test_scan_loop_keeps_its_pipe_budget(card, name, kernel):
+    """The scan loop's SASS, as ``chip_smoke.py build`` counts it: within
+    the ALU budget, the FMA pipe under the ALU pipe, no half-rate
+    IMAD.HI or IMAD.WIDE (each costs the loop more than the ALU
+    instruction it would replace, blake2b_search.cuh) and no spill; and
+    at least the hash's least work (dpowbench.roofline), so the count
+    covers the whole body. A source edit or a ptxas that moves work onto
+    slower forms fails here, not as a slower benchmark."""
+    from dpowbench import roofline
+
+    chip_smoke = _chip_smoke()
+    cuda_kernel.load_libraries()
+    sass = chip_smoke.sass_int_instructions(cuda_kernel.library_path(name), kernel)
+    fma = sum(n for op, n in sass["loop"].items() if op in chip_smoke.FMA_OPS)
+    alu = sum(sass["loop"].values()) - fma
+    assert alu <= SCAN_ALU_BUDGET, sass["loop"]
+    assert fma <= alu + 150, sass["loop"]
+    assert alu + fma >= roofline.INT_OPS_PER_HASH, sass["loop"]
+    assert sass["half_rate_in_loop"] == 0
+    assert sass["local_memory_ops_in_loop"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("windows", [1, 4, 16])
 def test_kernel_matches_plain_at_the_engines_launch_shapes(card, windows):
@@ -680,15 +862,16 @@ def test_kernel_counts_what_rows_ran_and_stops_a_row_lowered_mid_launch(card):
     for off, n in zip(search.offsets_to_numpy(out), search.offsets_to_numpy(scanned)):
         assert n == span if off == search.SENTINEL else off + 1 <= n <= span
 
-    # Four rows of 2^28 nonces (~0.1 s): two hit early, two are dry; row 1
-    # is stopped ~30 ms in.
+    # Four rows of 2^29 nonces: two hit early, two are dry; row 1 is
+    # stopped ~30 ms in, about half way through its span (2^28 a row ran
+    # to its end in under 30 ms once the body took the FMA pipe).
     rng = np.random.default_rng(16)
     hard = [(rng.bytes(32), 0xFFFC000000000000, int(rng.integers(0, 1 << 62))),
             (rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 62))),
             (rng.bytes(32), MAX_U64, int(rng.integers(0, 1 << 62))),
             (rng.bytes(32), 0xFFFC000000000000, (1 << 64) - 5000)]
     params = on_card(pack(hard))
-    geo = dict(sublanes=32, iters=1024, nblocks=64, group=8)
+    geo = dict(sublanes=32, iters=1024, nblocks=128, group=8)
     span = cuda_kernel.window(**geo)
     want = search.offsets_to_numpy(cuda_kernel.cuda_search_chunk_batch(params, **geo))
     out = torch.full((4,), -1, dtype=torch.int32, device="cuda")

@@ -92,10 +92,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// No minimum of blocks per SM: capped at 48 registers (5 blocks per SM, as
-// blake2b_search.cu) the loop spilled to local memory; uncapped it takes 80
-// registers (3 blocks per SM) without spills, and ran no slower.
+// Built for 3 blocks per SM (80 registers): capped at 48 or 64 registers
+// (5 or 4 blocks, as blake2b_search.cu) the scan loop spills to local
+// memory; with no minimum ptxas also takes 80 but spills outside the loop,
+// and the loop ran 4 % slower.
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 3;
 constexpr int kParamsLen = 12;
 constexpr int kCtrlWords = 6;
 constexpr uint32_t kFlagCancel = 1u, kFlagRaise = 2u, kFlagRebase = 4u;
@@ -221,7 +223,7 @@ __device__ __forceinline__ void scan_span(uint32_t span, uint64_t base, uint64_t
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     b2_run_kernel(const uint32_t* __restrict__ params, const uint8_t* __restrict__ active,
                   RunShared* shared, RowState* rows, unsigned int* live, uint32_t* out,
                   int nrows, uint32_t window, uint32_t stride, int max_steps, int poll_steps,

@@ -24,15 +24,16 @@
 // found-flag-in-SMEM has no counterpart; a pad row (difficulty 0) hits at
 // offset 0 and every warp of it drains after one stride.
 //
-// What bounds it. The work is pure 64-bit integer ALU: 48 bytes in and 4 out
-// per row, no matrix product. So the bound is the integer issue rate:
-// int32 instructions per nonce x nonces / (SMs x INT32 lanes per SM per
+// What bounds it. The work is pure 64-bit integer arithmetic: 48 bytes in
+// and 4 out per row, no matrix product. So the bound is the integer issue
+// rate: int32 instructions per nonce x nonces / (SMs x lanes per SM per
 // clock x clock), with the instruction count read from this kernel's SASS
-// (chip_smoke.py derives it with cuobjdump). nvcc puts some adds and moves
-// on the FMA pipe as IMAD, which issues beside the ALU pipe's IADD3, LOP3
-// and SHF, so the count is split by pipe and the slower pipe bounds it. The
-// design keeps every word of m[] and v[] in registers (compile-time indices
-// only, see the .cuh) so that no load or store sits on the hot path.
+// (chip_smoke.py derives it with cuobjdump), split by pipe: the ALU pipe
+// (LOP3, SHF, IADD3) and the FMA pipe (IMAD, IDP) issue side by side, and
+// the header moves what it can of the body onto the FMA pipe (see its
+// note). The design keeps every word of m[] and v[] in registers
+// (compile-time indices only, see the .cuh) so that no load or store sits
+// on the hot path.
 //
 // Stopping a row. The same re-read lets the host stop a running row: a
 // write of 0 into out[b] (an async copy on another stream) ends every warp
@@ -40,8 +41,7 @@
 // of a hit, so the host counts what the row ran from `scanned`: at exit,
 // lane 0 of each warp adds to scanned[b] the offsets below `span` that its
 // warp tested, derived from the loop's index after the loop, so the loop
-// does no counting: its SASS keeps 1,687 ALU- and 304 FMA-pipe integer
-// instructions per nonce. scanned == nullptr skips it.
+// does no counting. scanned == nullptr skips it.
 //
 // The wrapper (ops/cuda_kernel.py) fills out[] with 0xFFFFFFFF (and zeroes
 // scanned[]), launches on PyTorch's current stream and raises if
@@ -55,11 +55,15 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Blocks per SM the kernel is built for: 64 registers a thread (4 blocks of
+// 256), which the FMA-pipe rotations of blake2b_search.cuh need to schedule
+// both pipes; at 48 (5 blocks) the loop ran 3 % slower.
+constexpr int kMinBlocks = 4;
 constexpr int kParamsLen = 12;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     b2_search_kernel(const uint32_t* __restrict__ params, uint32_t* out, uint32_t* scanned,
                      uint32_t span) {
   const uint32_t* p = params + static_cast<size_t>(blockIdx.y) * kParamsLen;
