@@ -10,12 +10,15 @@ read (``end``), the outcome and the work it was served.
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import random
 import time
 from typing import Dict, List, Optional
 
 from . import reference
-from .loadgen import TIMEOUT_GRACE, HttpFace, RequestSpec, ServicePopulation, WsFace
+from .feed import NodeFeed
+from .loadgen import (TIMEOUT_GRACE, HttpFace, RequestSpec, ServicePopulation, WsFace,
+                      draw_seconds, nano_account)
 
 #: seconds past the window's close within which every answer that is due
 #: has to come
@@ -93,13 +96,27 @@ async def open_loop(faces: Faces, population: ServicePopulation, *, rate: float,
     return list(await asyncio.gather(*tasks)), start + warm_s
 
 
+def chain_account(seed: int, i: int) -> str:
+    """Caller i's Nano account under ``seed``."""
+    return nano_account(hashlib.blake2b(f"account:{seed}:{i}".encode(), digest_size=32).digest())
+
+
 async def closed_loop(faces: Faces, population: ServicePopulation, *, callers: int,
                       timeout: float, warm_s: float, seconds: float, seed: int,
-                      start: float) -> tuple:
+                      start: float, chain: Optional[dict] = None,
+                      feed: Optional[NodeFeed] = None) -> tuple:
     """``callers`` callers, caller i for service i, each sending a fresh hash
     as soon as its last one is answered, from set-up through the window;
     a request due after the window is not sent. Returns (records,
-    window start) once every caller's last request has ended."""
+    window start) once every caller's last request has ended.
+
+    With ``chain`` (``confirm_s``, ``think_s``: ``draw_seconds`` values),
+    caller i owns the account ``chain_account(seed, i)``, named in every
+    request, and chains its blocks: once the work for hash H is served, it
+    publishes a block B (a fresh hash) on H, which ``feed`` confirms
+    ``confirm_s`` after the answer, and asks for work on B ``think_s`` after
+    it. A request that is not served starts the chain again at once from a
+    fresh hash."""
     await asyncio.sleep(max(0.0, start - time.perf_counter()))
     t0, stop = start + warm_s, start + warm_s + seconds
     records: List[dict] = []
@@ -107,14 +124,27 @@ async def closed_loop(faces: Faces, population: ServicePopulation, *, callers: i
     async def caller(i: int) -> None:
         rng = random.Random(f"caller:{seed}:{i}")
         profile = population.profiles[i % len(population.profiles)]
+        account = chain_account(seed, i) if chain is not None else None
+        times = random.Random(f"chain:{seed}:{i}")
+        frontier = next_due = None
         while True:
-            now = time.perf_counter()
-            if now >= stop:
+            due = time.perf_counter() if next_due is None else next_due
+            if due >= stop:
                 return
-            spec = RequestSpec(now - start, profile.name, profile.api_key,
-                               f"{rng.getrandbits(256):064X}", timeout)
-            records.append(await faces.issue(spec, faces.pick(),
-                                             "warm" if now < t0 else "window", now))
+            if next_due is not None:
+                await asyncio.sleep(max(0.0, due - time.perf_counter()))
+            block_hash = frontier or f"{rng.getrandbits(256):064X}"
+            spec = RequestSpec(due - start, profile.name, profile.api_key, block_hash,
+                               timeout, account=account)
+            rec = await faces.issue(spec, faces.pick(), "warm" if due < t0 else "window", due)
+            records.append(rec)
+            if chain is None or rec["outcome"] != "ok":
+                frontier = next_due = None
+                continue
+            frontier = f"{rng.getrandbits(256):064X}"
+            feed.confirm(account, frontier, block_hash,
+                         rec["end"] + draw_seconds(chain["confirm_s"], times))
+            next_due = rec["end"] + draw_seconds(chain["think_s"], times)
 
     await asyncio.gather(*(caller(i) for i in range(callers)))
     return records, t0

@@ -14,11 +14,17 @@ program's generator does. Three departures, each for the benchmark's sake:
     deployment, the stream of requests is what ``--seed`` draws;
   * a face returns the work it was served, not only an outcome, so every
     answer can be judged.
+
+A request may name the Nano account whose block it asks work for
+(``RequestSpec.account``, an address from ``nano_account``): only then does
+its body carry ``"account"``, so a mix that names none sends the bodies it
+always sent.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import itertools
 import json
 import math
@@ -44,6 +50,46 @@ class RequestSpec:
     timeout: float
     #: seconds after issue at which the client abandons the request
     cancel_after: Optional[float] = None
+    #: the Nano account whose next block the work is for
+    account: Optional[str] = None
+
+
+def request_body(spec: RequestSpec) -> dict:
+    """The service faces' request body: ``account`` only where it is set."""
+    body = {"user": spec.service, "api_key": spec.api_key, "hash": spec.hash,
+            "timeout": spec.timeout}
+    if spec.account is not None:
+        body["account"] = spec.account
+    return body
+
+
+#: Nano's base32 alphabet (no 0, 2, l, v)
+NANO_ALPHABET = "13456789abcdefghijkmnopqrstuwxyz"
+
+
+def _nano_base32(value: int, chars: int) -> str:
+    return "".join(NANO_ALPHABET[(value >> (5 * k)) & 0x1F] for k in range(chars - 1, -1, -1))
+
+
+def nano_account(public_key: bytes) -> str:
+    """The ``nano_`` address of a 32-byte public key: the key in 52 base32
+    digits (4 zero bits first), then its 5-byte blake2b checksum, bytes
+    reversed, in 8."""
+    if len(public_key) != 32:
+        raise ValueError("a Nano public key is 32 bytes")
+    check = hashlib.blake2b(public_key, digest_size=5).digest()[::-1]
+    return ("nano_" + _nano_base32(int.from_bytes(public_key, "big"), 52)
+            + _nano_base32(int.from_bytes(check, "big"), 8))
+
+
+def draw_seconds(value, rng: random.Random) -> float:
+    """A mix's time in seconds: a number, or ``{"lognormal": [median, sigma]}``."""
+    if isinstance(value, (int, float)):
+        return float(value)
+    (kind, args), = value.items()
+    if kind == "lognormal":
+        return float(args[0]) * math.exp(rng.gauss(0.0, float(args[1])))
+    raise ValueError(f"unknown distribution {kind!r}")
 
 
 @dataclass(frozen=True)
@@ -190,11 +236,9 @@ class HttpFace:
     async def __call__(self, spec: RequestSpec) -> Tuple[str, Optional[str]]:
         import aiohttp
 
-        body = {"user": spec.service, "api_key": spec.api_key, "hash": spec.hash,
-                "timeout": spec.timeout}
         try:
             async with self._session.post(
-                self.url, json=body,
+                self.url, json=request_body(spec),
                 timeout=aiohttp.ClientTimeout(total=spec.timeout + TIMEOUT_GRACE),
             ) as resp:
                 data = await resp.json(content_type=None)
@@ -265,9 +309,7 @@ class WsFace:
         fut = asyncio.get_running_loop().create_future()
         conn["pending"][rid] = fut
         try:
-            await conn["ws"].send_json({"user": spec.service, "api_key": spec.api_key,
-                                        "hash": spec.hash, "timeout": spec.timeout,
-                                        "id": rid})
+            await conn["ws"].send_json({**request_body(spec), "id": rid})
             data = await asyncio.wait_for(fut, spec.timeout + TIMEOUT_GRACE)
         except asyncio.TimeoutError:
             return "timeout", None

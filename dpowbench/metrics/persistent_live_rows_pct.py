@@ -3,10 +3,11 @@ which the row was still live (%), in the window: the ``live`` delta of
 ``dpow_backend_persistent_row_windows_total`` over the ``live`` + ``done``
 deltas on the worker's /metrics. A row is live until the control poll at
 which the card reported it done, and done from then until its launch
-returned with its slowest row; the rows share the grid evenly, so this is
-the share of the run kernel's grid that scanned for a live row. Counted at
-apply, per launch. None where the worker does not count row-windows or
-applied no persistent launch in the window."""
+returned with its slowest row. It counts row-windows, not the grid: the run
+kernel deals its grid anew at every span over the rows still live, so a
+done row's blocks scan for the live rows and do not idle. Counted at apply,
+per launch. None where the worker does not count row-windows or applied no
+persistent launch in the window."""
 
 from dpowbench import prom
 

@@ -22,7 +22,10 @@ FMA pipe (IMAD and its forms). Counted, per half of a word, as the fewest
     next). 4 per G, so 8 instructions;
   * rotate: rotr 32 swaps the halves, 0 instructions; rotr 24, rotr 16 and
     rotr 63 take one PRMT or SHF per half on the ALU pipe, or two on the FMA
-    pipe (IMAD.HI and IMAD), so at least 1. 6 per G;
+    pipe (IMAD.HI and IMAD, or IDP and IMAD for a byte rotation), so at
+    least 1. 6 per G. The count is a floor: IMAD.HI issues at half rate on
+    the H100 and slows the ALU work beside it, so no kernel reaches the mix
+    that puts every rotate on the FMA pipe;
   * add: a 64-bit add of two or three words is one IADD3 or IMAD per half
     with the carry: 4 per G, 8 instructions. Fusing a rotate into the add
     that reads it leaves the rotated word to compute all the same, since the
@@ -56,9 +59,9 @@ The least time for a hash is the larger of the XORs over the ALU pipe alone
 and all 1,982 instructions over both pipes together: 720 / 64 = 11.25 and
 1,982 / 128 = 15.48 lane-clocks, so both pipes, full and evenly loaded, set
 the bound. A kernel with more work on one pipe takes longer, so no kernel
-reads over 100 %. A test prices the search kernel's SASS today (1,687 ALU-
-and 304 FMA-pipe instructions per nonce) by the same peaks: it reads under
-100 %.
+reads over 100 %. A test prices the search kernel's SASS by the same peaks
+(1,324 ALU- and 1,028 FMA-pipe instructions per nonce today, with rotr 24
+and rotr 16 as IDP and IMAD; 1,687 and 304 before): it reads under 100 %.
 
 Peak: the SMs' lanes of both pipes at the card's maximum SM clock as
 ``nvidia-smi`` reads it.

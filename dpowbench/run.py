@@ -37,6 +37,7 @@ import tempfile  # noqa: E402
 
 from . import devtrace, drive, prom, roofline  # noqa: E402
 from .child import forbidden_modules  # noqa: E402
+from .feed import NodeFeed  # noqa: E402
 from .stack import ROOT, Stack  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -142,7 +143,7 @@ async def run_cell(args, bench: dict, cell: dict, config: dict, traffic: dict,
     population = drive.make_population(traffic, args.seed)
     stack = Stack(workdir, config, device=args.device, hub_difficulty=hub_difficulty,
                   trace=bool(args.trace))
-    faces = None
+    faces = feed = None
     # torch is imported beside the children, which import it too
     count = (asyncio.ensure_future(asyncio.to_thread(cuda_device_count))
              if args.device == "cuda" else None)
@@ -157,6 +158,9 @@ async def run_cell(args, bench: dict, cell: dict, config: dict, traffic: dict,
         t_joined = time.perf_counter()
         faces = drive.Faces(stack, traffic["ws_share"], args.seed)
         await faces.start()
+        if "chain" in traffic:
+            feed = NodeFeed(stack.url("blocks"))
+            await feed.start()
         pages: dict = {}
         # The generator's own collector would stall the loop for ~0.1-0.2 s
         # (a heap that holds torch) and count as the system's latency: freeze
@@ -177,8 +181,12 @@ async def run_cell(args, bench: dict, cell: dict, config: dict, traffic: dict,
                 records, _ = await drive.closed_loop(
                     faces, population, callers=traffic["callers"], timeout=traffic["timeout"],
                     warm_s=traffic["warm_s"], seconds=args.seconds, seed=args.seed,
-                    start=start)
+                    start=start, chain=traffic.get("chain"), feed=feed)
             await marks
+        if feed is not None:
+            # confirmations still due stop here: during late_answers one
+            # could retire a hash that is being asked for again
+            await feed.close()
         gc.enable()
         setup_s = t0 - T_START
         print(f"dpowbench: set-up {setup_s:.3f} s: {t_spawn - T_START:.3f} s to the spawn, "
@@ -196,6 +204,8 @@ async def run_cell(args, bench: dict, cell: dict, config: dict, traffic: dict,
         drive.slices(records, t0, args.seconds)), file=sys.stderr)
     print("dpowbench: window, ms: " + drive.lag_summary(records), file=sys.stderr)
     print("dpowbench: window in the pages: " + pages_summary(pages), file=sys.stderr)
+    if feed is not None:
+        print("dpowbench: node feed: " + feed.summary(pages, t0, args.seconds), file=sys.stderr)
     stats = drive.window_stats(records, t0, args.seconds, traffic["loop"])
     checks = drive.judge(records, late, threshold)
     return {"stats": stats, "checks": checks, "setup_s": setup_s, "pages": pages,

@@ -8,8 +8,10 @@ the timed path underneath the harness, and see ``correct`` come out false.
 hub's answer, ``worker_nonce`` the work the worker's engine produces (the
 hub then refuses it, so the answer never comes), ``second_work`` answers a
 repeated hash with another valid work than its first (a store that does not
-keep one work per hash), ``jax`` loads a module named ``jax`` in every
-child.
+keep one work per hash), ``precache_store`` answers a store hit with the
+work kept for the block before it (precached work keyed one block off the
+confirmed one; planted in the reply, since the hub's own final validation
+would refuse it), ``jax`` loads a module named ``jax`` in every child.
 """
 
 from __future__ import annotations
@@ -77,6 +79,27 @@ SITE = textwrap.dedent('''
             return out
 
         _app.DpowServer.service_handler = service_handler
+    elif _fault == "precache_store":
+        from tpu_dpow_torch.precache import pipeline as _pl
+        from tpu_dpow_torch.server import app as _app
+        _orig_confirm = _pl.PrecachePipeline.on_confirmation
+        _orig_request = _app.DpowServer._service_request
+        _previous, _served = {}, {}
+
+        async def on_confirmation(self, block_hash, account, previous):
+            _previous[block_hash] = previous
+            return await _orig_confirm(self, block_hash, account, previous)
+
+        async def _service_request(self, data, served):
+            out = await _orig_request(self, data, served)
+            h = out["hash"]
+            _served[h] = out["work"]
+            if served["work_type"] == "precache" and _previous.get(h) in _served:
+                out = dict(out, work=_served[_previous[h]])
+            return out
+
+        _pl.PrecachePipeline.on_confirmation = on_confirmation
+        _app.DpowServer._service_request = _service_request
     elif _fault == "jax":
         import jax  # noqa: F401
 ''')
@@ -102,11 +125,17 @@ OPEN_CELL = {
                                ("engine_overscan.latency", "x"),
                                ("device_idle_pct.latency", "%"))],
 }
+C = "send_v2.chain"
+#: an account-chained closed loop, entered as a later change would add one:
+#: closed32's callers, each asking for its account's next block, which the
+#: node feed confirms first, so precache can answer it from the store
+CHAIN = {"confirm_s": 0.05, "think_s": {"lognormal": [0.5, 0.1]}}
 
 
-def make_bench(tmp_path, *, rate=8.0, callers=4, timeout_cap=30.0):
+def make_bench(tmp_path, *, rate=8.0, callers=4, timeout_cap=30.0, chain=CHAIN):
     """A benchmark file beside copies of the real configurations and mixes,
-    with the open-loop cell added, at the tiny threshold and a CPU's rate."""
+    with the open-loop cell and the chained cell (``send_v2.chain``, closed32
+    with ``chain``) added, at the tiny threshold and a CPU's rate."""
     base = tmp_path / "bench"
     (base / "dpowbench" / "configs").mkdir(parents=True)
     (base / "dpowbench" / "traffic").mkdir(parents=True)
@@ -114,6 +143,9 @@ def make_bench(tmp_path, *, rate=8.0, callers=4, timeout_cap=30.0):
         bench = json.load(f)
     for key, entries in OPEN_CELL.items():
         bench[key] = bench[key] + entries
+    bench["workloads"].append({"name": C, "config": "send_v2", "traffic": "chain", "chips": 1,
+                               "why": "x"})
+    next(m for m in bench["end_to_end"] if m["name"] == "served_per_s")["workloads"].append(C)
     for entry in bench["configs"]:
         with open(os.path.join(ROOT, entry["file"])) as f:
             cfg = json.load(f)
@@ -124,8 +156,11 @@ def make_bench(tmp_path, *, rate=8.0, callers=4, timeout_cap=30.0):
         if cell["traffic"] == "poisson":
             mix = json.loads(json.dumps(POISSON))
         else:
-            with open(os.path.join(ROOT, "dpowbench", "traffic", name)) as f:
+            with open(os.path.join(ROOT, "dpowbench", "traffic",
+                                   "closed32.json" if cell["traffic"] == "chain" else name)) as f:
                 mix = json.load(f)
+        if cell["traffic"] == "chain":
+            mix["chain"] = chain
         mix["warm_s"] = 1.0
         if mix["loop"] == "open":
             mix["rate"] = rate
@@ -160,6 +195,7 @@ def faulty(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("workload,trace", [(R, 0),
                                             ("send_v2.closed32", 0),
+                                            (C, 0),
                                             (R, 1)])
 def test_dpowbench_run_prints_a_well_formed_last_line(tmp_path, workload, trace):
     bench_path, bench = make_bench(tmp_path)
@@ -247,6 +283,40 @@ def test_dpowbench_altered_worker_answer_never_comes(tmp_path, faulty, capsys):
     assert line["correct"] is False
     assert line["checks"]["never_answered"]["value"] > 0
     assert line["checks"]["served_min"]["value"] == 0
+
+
+def precache_outcomes(stderr: str) -> dict:
+    """The window's ``dpow_precache_requests_total`` deltas from the feed's
+    stderr line."""
+    line = next(e for e in stderr.splitlines() if e.startswith("dpowbench: node feed: "))
+    return {k: float(v) for k, v in (p.split("=") for p in line.split("requests: ")[1].split()
+                                     if "=" in p)}
+
+
+def test_dpowbench_chained_loop_is_answered_from_the_precache(tmp_path):
+    """Confirmations well before the next request: the hub precaches each
+    account's next block, and the window's requests hit the store."""
+    bench_path, _ = make_bench(tmp_path)
+    proc = subprocess.run(command(bench_path, C, 2**31 + 4242, 5), cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert line["correct"] is True, line["checks"]
+    assert line["failed"] == 0
+    assert precache_outcomes(proc.stderr).get("hit", 0) > 0, proc.stderr[-3000:]
+    assert "failed=0 " in proc.stderr
+
+
+def test_dpowbench_precache_store_fault_is_not_correct(tmp_path, faulty):
+    faulty.setenv("DPOWBENCH_FAULT", "precache_store")
+    bench_path, _ = make_bench(tmp_path)
+    proc = subprocess.run(command(bench_path, C, 83, 5), cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert line["correct"] is False
+    assert line["checks"]["invalid_work"]["value"] > 0
+    assert precache_outcomes(proc.stderr).get("hit", 0) > 0
 
 
 def test_dpowbench_refuses_a_run_whose_children_load_jax(tmp_path, faulty):
